@@ -1,0 +1,1 @@
+"""Ops: attention dispatch and the hand-written CUDA kernels with their plain twins."""
