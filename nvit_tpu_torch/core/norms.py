@@ -2,7 +2,9 @@
 
 All norms reduce in float32 and cast back, with the same rounding points as
 the JAX package: ``justnorm`` returns the input dtype, ``rms_norm`` and
-``layer_norm`` promote through the fp32 weight multiply.
+``layer_norm`` promote through the fp32 weight multiply.  ``justnorm`` (and
+the residual updates built on it) reduce float64 inputs in float64, so their
+backwards can be held against ``torch.autograd.gradcheck``.
 """
 
 from __future__ import annotations
@@ -10,11 +12,16 @@ from __future__ import annotations
 import torch
 
 
+def acc32(x: torch.Tensor) -> torch.Tensor:
+    """x in its reduction dtype: float32, or float64 for a float64 x."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def justnorm(x: torch.Tensor, dim: int = -1, eps: float = 0.0) -> torch.Tensor:
     """L2-normalize along ``dim``: fp32 sums, original dtype out.
 
     ``eps=0`` divides by the bare norm, as the reference does."""
-    x32 = x.float()
+    x32 = acc32(x)
     norm = torch.sqrt(torch.sum(x32 * x32, dim=dim, keepdim=True))
     if eps:
         norm = torch.clamp_min(norm, eps)

@@ -45,6 +45,34 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 1, 3).reshape(b, t, h * d)
 
 
+class SplitFusedHeads(torch.autograd.Function):
+    """A fused projection [B, T, n·C] → n head views [B, H, T, D] (≙ split
+    into n chunks, then ``split_heads``).  The backward returns the n head
+    gradients as the fused gradient WITHOUT a copy when they are the
+    adjacent views of one [B, T, n, H, D] buffer — what K2 writes dq, dk, dv
+    into — and concatenates them otherwise."""
+
+    @staticmethod
+    def forward(ctx, x, n, n_head):
+        b, t, c = x.shape
+        ctx.dims = (b, t, n, n_head, c // (n * n_head))
+        heads = x.view(*ctx.dims)
+        return tuple(heads[:, :, i].permute(0, 2, 1, 3) for i in range(n))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        b, t, n, h, d = ctx.dims
+        g0 = grads[0]
+        fused_strides = (t * n * h * d, d, n * h * d, 1)
+        if all(g is not None and g.dtype == g0.dtype and g.stride() == fused_strides
+               and g.untyped_storage().data_ptr() == g0.untyped_storage().data_ptr()
+               and g.storage_offset() == g0.storage_offset() + i * h * d
+               for i, g in enumerate(grads)):
+            return g0.as_strided((b, t, n * h * d), (t * n * h * d, n * h * d, 1)), None, None
+        zeros = lambda: torch.zeros((b, h, t, d), dtype=g0.dtype, device=g0.device)  # noqa: E731
+        return torch.cat([merge_heads(zeros() if g is None else g) for g in grads], dim=-1), None, None
+
+
 def use_mlp_kernel(cfg: ViTConfig) -> bool:
     """Resolve ``gated_mlp_kernel`` (≙ blocks.py:_use_mlp_kernel): flash_attn
     gates every kernel path; "auto" keys on the width."""
@@ -125,7 +153,7 @@ class Block(nn.Module):
         # fused QKV: one matmul reads h once (≙ blocks.py:140-142)
         w_qkv, b_qkv = concat_linears([(m.weight, m.bias) for m in (self.query, self.key, self.value)])
         qkv = linear(h, w_qkv, b_qkv, compute_dtype=dt)
-        q, k, v = (split_heads(t, cfg.n_head) for t in torch.chunk(qkv, 3, dim=-1))
+        q, k, v = SplitFusedHeads.apply(qkv, 3, cfg.n_head)
         att = attention_qknorm(
             q, k, v, sqk_eff(self.sqk, cfg), math.sqrt(cfg.head_dim),
             use_flash=cfg.flash_attn, bounded_softmax=cfg.bounded_softmax,

@@ -6,8 +6,9 @@ unused nViT ``rmsnorm_att/mlp`` weights — so converted JAX parameters load
 with ``load_state_dict(strict=True)``.  ``forward`` returns the logits:
 dual patch embed → shared cross-attention → blocks with the outer
 ``norm_skip`` → mean-pool → LayerNorm head (no compute dtype) → ``sz`` scale.
-The reconstruction head's parameters exist for the ``state_dict``; its
-output is a training loss term only and is not computed here.
+``forward_train`` also returns the aux losses (the reconstruction term,
+reported but not weighted into the loss without Kohonen); ``total_loss``,
+``num_params`` and ``estimate_flops_per_iter`` follow vit.py.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from nvit_tpu_torch.configs import ViTConfig
 from nvit_tpu_torch.core.layers import linear
 from nvit_tpu_torch.core.norms import layer_norm
 from nvit_tpu_torch.core.residual import norm_skip
+from nvit_tpu_torch.models.losses import cross_entropy, mse_loss
 from nvit_tpu_torch.models.blocks import Block, CrossAttentionBlock, init_linear
 from nvit_tpu_torch.models.patch import (
     extract_overlapping_patches,
@@ -114,16 +116,67 @@ class ViT(nn.Module):
         global_ = global_ + self.global_pos_embed.to(global_.dtype)
         return local, global_
 
-    def forward(self, img: torch.Tensor, *, compute_dtype: torch.dtype | None = None) -> torch.Tensor:
-        """img [B, C, H, W] fp32 → logits [B, num_classes] fp32."""
-        cfg = self.cfg
+    def _trunk(self, img: torch.Tensor, compute_dtype: torch.dtype | None) -> torch.Tensor:
+        """Embeddings → shared cross-attention → blocks with the outer
+        ``norm_skip`` → patches [B, T, d]."""
         local, global_ = self.embed_patches(img, compute_dtype=compute_dtype)
         patches = self.cross_attention(local, global_, compute_dtype=compute_dtype)
         for blk in self.transformer["h"]:
             patches = norm_skip(blk(patches, compute_dtype=compute_dtype), patches, blk.skip_param)
+        return patches
+
+    def _head(self, patches: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
         x = torch.mean(patches, dim=1)
         norm, head = self.mlp_head[0], self.mlp_head[1]
         # the head runs without a compute dtype, exactly as vit.py:211
         logits = linear(layer_norm(x, norm.weight, norm.bias), head.weight, head.bias)
         sz_eff = self.sz * (cfg.sz_init_value / cfg.sz_init_scaling)
         return logits.float() * sz_eff
+
+    def forward(self, img: torch.Tensor, *, compute_dtype: torch.dtype | None = None) -> torch.Tensor:
+        """img [B, C, H, W] fp32 → logits [B, num_classes] fp32."""
+        return self._head(self._trunk(img, compute_dtype))
+
+    def forward_train(
+        self, img: torch.Tensor, *, compute_dtype: torch.dtype | None = None
+    ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+        """→ (logits, aux losses) (≙ vit_apply with train=True, non-Kohonen):
+        aux holds ``reconstruction``, the mse of tanh(reconstruction_head
+        (patches)) against the raw pixel patches (vit.py:215-217)."""
+        patches = self._trunk(img, compute_dtype)
+        rec = self.reconstruction_head[0]
+        reconstructed = torch.tanh(linear(patches, rec.weight, rec.bias, compute_dtype=compute_dtype))
+        target = space_to_depth(img, self.cfg.local_patch_size)
+        return self._head(patches), {"reconstruction": mse_loss(reconstructed, target)}
+
+
+def total_loss(
+    cfg: ViTConfig,
+    consistency_weight: float,
+    smoothness_weight: float,
+    logits: torch.Tensor,
+    labels: torch.Tensor,
+    aux: dict[str, torch.Tensor],
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """CE + weighted aux losses (≙ vit.py:total_loss).  Without Kohonen the
+    loss is the cross-entropy alone and ``reconstruction`` is only reported."""
+    if cfg.use_kohonen:
+        raise NotImplementedError("the Kohonen losses come with the SOM (ROADMAP.md, 'Kohonen SOM')")
+    class_loss = cross_entropy(logits, labels)
+    terms = {"class_loss": class_loss, "reconstruction": aux["reconstruction"], "total_loss": class_loss}
+    return class_loss, terms
+
+
+def num_params(model: nn.Module) -> int:
+    """Parameter count (≙ vit.py:num_params — the same leaves as init_vit)."""
+    return sum(p.numel() for p in model.parameters())
+
+
+def estimate_flops_per_iter(cfg: ViTConfig, n_params: int, fwdbwd_per_iter: int = 1) -> float:
+    """FLOPs per image and iteration (≙ vit.py:estimate_flops_per_iter):
+    flops/token = 6N + 12·L·H·Q·T, flops/iter = flops/token · T · fwdbwd."""
+    L_, H, Q = cfg.n_layer, cfg.n_head, cfg.head_dim
+    T = cfg.n_patches
+    flops_per_token = 6 * n_params + 12 * L_ * H * Q * T
+    return float(flops_per_token * T * fwdbwd_per_iter)

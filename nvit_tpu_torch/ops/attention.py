@@ -3,8 +3,8 @@
 * ``sdpa`` / ``qknorm_project`` are the plain path — the twins of the JAX
   package's XLA functions, taken when ``flash_attn`` is off;
 * ``attention_qknorm(..., use_flash=True)`` is the fused QK-norm kernel K1
-  (ops/flash_attention.py): launched on CUDA tensors, its plain twin on CPU
-  tensors.
+  with its backward K2 (ops/flash_attention.py): launched on CUDA tensors,
+  their plain twins on CPU tensors.
 
 The plain path is written out, not handed to PyTorch's fused attention
 operator, so it keeps the JAX package's rounding points.

@@ -1,0 +1,48 @@
+"""Training state (≙ nvit_tpu/train/state.py:23-56).
+
+``TrainState`` holds the model (its parameters), the optimizer state, the
+step and a ``torch.Generator`` in place of the JAX PRNG key.  The two
+frameworks draw different numbers from the same seed, so a fresh state's
+weights are the port's own; the tests carry JAX weights across with
+``ckpt.convert.state_dict_from_jax``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from nvit_tpu_torch.configs import Config
+from nvit_tpu_torch.models.vit import ViT
+from nvit_tpu_torch.train.optim import FusedAdamWState, init_fused_adamw
+
+
+@dataclass
+class TrainState:
+    model: ViT
+    opt_state: FusedAdamWState
+    step: int  # ≙ Trainer.iter_num
+    generator: torch.Generator  # host randomness of the run (≙ the PRNG key)
+
+
+def create_train_state(cfg: Config, seed: int | None = None, *, device: torch.device | str) -> TrainState:
+    """Fresh weights (init_vit's distributions) and zero moments on ``device``."""
+    seed = cfg.training.seed if seed is None else seed
+    device = torch.device(device)
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    model = ViT(cfg.model, device=device).init_weights(g)
+    opt_state = init_fused_adamw(model.named_parameters(), cfg.optimizer.moments_dtype)
+    rng = torch.Generator()
+    rng.manual_seed(seed + 1)
+    return TrainState(model=model, opt_state=opt_state, step=0, generator=rng)
+
+
+def compute_dtype_of(cfg: Config) -> torch.dtype | None:
+    """bf16 policy: parameters fp32, activations in the compute dtype.
+    ``use_amp=False`` or ``dtype=float32`` forces fp32 compute; bf16 needs no
+    loss scaling, so there is no GradScaler."""
+    if not cfg.system.use_amp:
+        return None
+    return {"bfloat16": torch.bfloat16, "float16": torch.bfloat16, "float32": None}[cfg.system.dtype]

@@ -1,0 +1,122 @@
+"""The train and eval steps (≙ nvit_tpu/train/step.py:44-214).
+
+One training step: the forward and the weighted loss, the backward (K2 and K4
+run inside it, behind ``FlashQKNormFn`` and ``GatedMLPFn``), then the fused
+clip + AdamW + renorm update.  Gradient accumulation runs over DISTINCT
+micro-batches: ``.grad`` sums them, and the sum is divided by the count
+(≙ the JAX ``lax.scan``, :99-134).  No GradScaler: bf16 needs no loss
+scaling.  PyTorch runs eagerly, so there is no jit and no mesh.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from nvit_tpu_torch.configs import Config
+from nvit_tpu_torch.models.losses import topk_accuracy
+from nvit_tpu_torch.models.schedules import cosine_lr
+from nvit_tpu_torch.models.vit import total_loss
+from nvit_tpu_torch.train.optim import fused_adamw_renorm_update, global_norm
+from nvit_tpu_torch.train.state import TrainState, compute_dtype_of
+
+Metrics = dict[str, torch.Tensor]
+
+# per-group gradient norms: the JAX tree's group → the ViT parameter prefix
+GRAD_NORM_GROUPS = {
+    "cross_attention": "cross_attention.",
+    "local_patch_embed": "local_patch_embed.",
+    "global_patch_embed": "global_patch_embed.",
+    "head": "mlp_head.1.",
+}
+
+
+def make_loss_fn(cfg: Config):
+    """(model, images, labels) → (loss, terms)."""
+    dt = compute_dtype_of(cfg)
+
+    def loss_fn(model, images: torch.Tensor, labels: torch.Tensor):
+        logits, aux = model.forward_train(images, compute_dtype=dt)
+        return total_loss(cfg.model, cfg.training.consistency_weight,
+                          cfg.training.smoothness_weight, logits, labels, aux)
+
+    return loss_fn
+
+
+def make_train_step(
+    cfg: Config, log_norms: bool | None = None
+) -> Callable[[TrainState, torch.Tensor, torch.Tensor], tuple[TrainState, Metrics]]:
+    """(state, images, labels) → (state, metrics); the state is updated in place.
+
+    ``images``: [B, C, H, W] fp32 (normalized); ``labels``: [B] int.  With
+    gradient_accumulation_steps = k, B must divide by k.  ``log_norms``
+    overrides ``cfg.system.log_gpu_stats`` for the grad/param norm metrics."""
+    if cfg.system.remat:
+        raise NotImplementedError(
+            "system.remat=True: activation recompute is not ported yet (ROADMAP.md, 'remat'); "
+            "set system.remat=false"
+        )
+    accum = max(1, cfg.training.gradient_accumulation_steps)
+    want_norms = cfg.system.log_gpu_stats if log_norms is None else log_norms
+    loss_fn = make_loss_fn(cfg)
+
+    def train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor):
+        b = images.shape[0]
+        if b % accum:
+            raise ValueError(f"batch size {b} not divisible by gradient_accumulation_steps={accum}")
+        params = dict(state.model.named_parameters())
+        for p in params.values():
+            p.grad = None
+        micro = b // accum
+        terms = None
+        for i in range(accum):
+            sl = slice(i * micro, (i + 1) * micro)
+            loss, t = loss_fn(state.model, images[sl], labels[sl])
+            loss.backward()
+            t = {k: v.detach() for k, v in t.items()}
+            terms = t if terms is None else {k: terms[k] + t[k] for k in terms}
+        # a parameter outside the loss (the reconstruction head) has a zero
+        # gradient, as in JAX; accumulated sums are divided by the count
+        grads = {n: torch.zeros_like(p) if p.grad is None else p.grad for n, p in params.items()}
+        if accum > 1:
+            grads = {n: g / accum for n, g in grads.items()}
+            terms = {k: v / accum for k, v in terms.items()}
+
+        state.opt_state = fused_adamw_renorm_update(
+            cfg.optimizer, params, grads, state.opt_state, renorm=cfg.model.use_nvit)
+        metrics: Metrics = dict(terms)
+        metrics["learning_rate"] = cosine_lr(cfg.optimizer, state.step)
+        if want_norms:
+            with torch.no_grad():
+                metrics["grad_norm"] = global_norm(grads.values())
+                metrics["param_norm"] = global_norm(params.values())
+                for i in range(cfg.model.n_layer):
+                    prefix = f"transformer.h.{i}."
+                    metrics[f"blocks.{i}_grad_norm"] = global_norm(
+                        g for n, g in grads.items() if n.startswith(prefix))
+                for group, prefix in GRAD_NORM_GROUPS.items():
+                    metrics[f"{group}_grad_norm"] = global_norm(
+                        g for n, g in grads.items() if n.startswith(prefix))
+        for p in params.values():
+            p.grad = None
+        state.step += 1
+        return state, metrics
+
+    return train_step
+
+
+def make_eval_step(cfg: Config) -> Callable[[torch.nn.Module, torch.Tensor, torch.Tensor], Metrics]:
+    """(model, images, labels) → per-batch metrics: the weighted loss, its
+    terms, top-1 and top-5 accuracy (≙ step.py:make_eval_step)."""
+    dt = compute_dtype_of(cfg)
+
+    @torch.no_grad()
+    def eval_step(model, images: torch.Tensor, labels: torch.Tensor) -> Metrics:
+        logits, aux = model.forward_train(images, compute_dtype=dt)
+        loss, terms = total_loss(cfg.model, cfg.training.consistency_weight,
+                                 cfg.training.smoothness_weight, logits, labels, aux)
+        top1, top5 = topk_accuracy(logits, labels)
+        return {**terms, "loss": loss, "top1_accuracy": top1, "top5_accuracy": top5}
+
+    return eval_step

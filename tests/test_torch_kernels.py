@@ -1,11 +1,13 @@
 """The port's kernel twins against the JAX package's Pallas kernels.
 
-K1 (QK-norm flash attention forward, row-max arm) and K3 (fused gated MLP
-forward) are CUDA kernels in the port; on the CPU their wrappers run the
-plain PyTorch twins.  Here each twin is held against the Pallas kernel it
-replaces, run as the JAX tests run it (``force_tpu_interpret_mode``), and the
-plain ``flash_attn=False`` path against the JAX package's XLA functions.
-Inputs are made from a seed with numpy and handed to both frameworks.
+K1/K2 (QK-norm flash attention forward and backward, row-max arm) and K3/K4
+(fused gated MLP forward and backward) are CUDA kernels in the port; on the
+CPU their wrappers and ``autograd.Function``s run the plain PyTorch twins.
+Here each twin is held against the Pallas kernel it replaces, run as the JAX
+tests run it (``force_tpu_interpret_mode``; the backwards through
+``jax.vjp``), and the plain ``flash_attn=False`` path against the JAX
+package's XLA functions.  Inputs are made from a seed with numpy and handed
+to both frameworks.
 """
 
 import jax.numpy as jnp
@@ -22,9 +24,19 @@ from nvit_tpu_torch.ops.attention import attention_qknorm
 from nvit_tpu_torch.ops.flash_attention import (
     flash_attention_qknorm,
     flash_attention_qknorm_ref,
+    qknorm_attention_bwd,
+    qknorm_attention_bwd_ref,
     qknorm_attention_fwd,
 )
-from nvit_tpu_torch.ops.gated_mlp import gated_mlp, gated_mlp_fwd, gated_mlp_ref, gated_mlp_xla
+from nvit_tpu_torch.ops.gated_mlp import (
+    gated_mlp,
+    gated_mlp_bwd_duv,
+    gated_mlp_bwd_ref,
+    gated_mlp_duv_ref,
+    gated_mlp_fwd,
+    gated_mlp_ref,
+    gated_mlp_xla,
+)
 
 torch.set_num_threads(1)
 
@@ -180,3 +192,135 @@ def test_k3_dispatch_on_cpu_is_the_twin():
     with pytest.raises(ValueError, match="CUDA"):
         gated_mlp_fwd(xt, wt)
     assert gated_mlp_fwd.launches == before
+
+
+# ------------------------------------------------------------------ K2
+def jax_qknorm_vjp(q, k, v, sqk, do, scale, jdt):
+    """dq, dk, dv, d(sqk_eff) of the Pallas rowmax kernels (K1 forward, K2
+    backward), run in interpret mode."""
+    import jax
+
+    def f(q_, k_, v_, s_):
+        return jax_flash_qknorm(q_, k_, v_, s_, scale, mode="rowmax")
+
+    with pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(f, *(to_jax(x, jdt) for x in (q, k, v)), jnp.asarray(sqk))
+        return vjp(to_jax(do, jdt))
+
+
+@pytest.mark.parametrize("shape", [(2, 2, 100, 32), (1, 2, 64, 64)])  # ragged T; head dim 64
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_k2_twin_and_autograd_match_pallas_vjp(shape, dtype):
+    """FlashQKNormFn on CPU tensors (K1's twin forward, K2's twin backward)
+    against jax.vjp of the Pallas kernels: dq, dk, dv and d sqk_eff.  fp32 to
+    rtol 1e-4 / atol 1e-5 (summation order); bf16 to 2e-2 (one bf16 rounding
+    of q̂/k̂/P/dS/O may land on either side)."""
+    jdt, tdt, _ = DTYPES[dtype]
+    b, h, t, d = shape
+    q, k, v, sqk = qkv_inputs(40 + t + d, b=b, h=h, t=t, d=d)
+    do = np.random.default_rng(41).standard_normal(q.shape, dtype=np.float32)
+    scale = float(np.sqrt(d))
+    ref = jax_qknorm_vjp(q, k, v, sqk, do, scale, jdt)
+
+    qt, kt, vt = (to_torch(x, tdt).requires_grad_() for x in (q, k, v))
+    st = torch.from_numpy(sqk).requires_grad_()
+    out = flash_attention_qknorm(qt, kt, vt, st, scale)
+    out.backward(to_torch(do, tdt))
+    tol = dict(rtol=1e-4, atol=1e-5) if dtype == "fp32" else dict(rtol=2e-2, atol=2e-2)
+    for name, got, want in zip(("dq", "dk", "dv", "dsqk"), (qt.grad, kt.grad, vt.grad, st.grad), ref):
+        assert got.dtype == (torch.float32 if name == "dsqk" else tdt), name
+        np.testing.assert_allclose(as_np(got), as_np(want), **tol, err_msg=name)
+
+    # the autograd Function's backward is the twin, called on the saved tensors
+    with torch.no_grad():
+        o, lse = flash_attention_qknorm_ref(qt, kt, vt, st, scale)
+        dq, dk, dv, dsqk = qknorm_attention_bwd_ref(qt, kt, vt, st, scale, o, lse, to_torch(do, tdt))
+    assert dsqk.shape == (b, h, d)
+    for got, want in ((qt.grad, dq), (kt.grad, dk), (vt.grad, dv), (st.grad, dsqk.sum(0))):
+        assert torch.equal(got, want)
+
+
+def test_forward_without_autograd_saves_nothing():
+    """Inference (no grad, or no input that requires grad) takes the plain
+    forward: no autograd node, so no lse and no saved tensors."""
+    q, k, v, sqk = (torch.from_numpy(x) for x in qkv_inputs(6, t=16))
+    with torch.inference_mode():
+        assert flash_attention_qknorm(q, k, v, sqk, 5.0).grad_fn is None
+    assert flash_attention_qknorm(q, k, v, sqk, 5.0).grad_fn is None
+    assert flash_attention_qknorm(q, k, v, sqk.requires_grad_(), 5.0).grad_fn is not None
+    x, w = (torch.from_numpy(a) for a in mlp_inputs(7, n=8, k=64, h=64))
+    with torch.no_grad():
+        assert gated_mlp(x, w.requires_grad_()).grad_fn is None
+    assert gated_mlp(x, w).grad_fn is not None
+
+
+def test_k2_kernel_wrapper_refuses_cpu_tensors():
+    q, k, v, sqk = (to_torch(x, torch.bfloat16) for x in qkv_inputs(8, t=16))
+    o, lse = flash_attention_qknorm_ref(q, k, v, sqk.float(), 5.0)
+    before = qknorm_attention_bwd.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        qknorm_attention_bwd(q, k, v, sqk.float(), 5.0, o, lse, o)
+    assert qknorm_attention_bwd.launches == before
+
+
+# ------------------------------------------------------------------ K4
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_k4_twin_and_autograd_match_pallas_vjp(dtype):
+    """GatedMLPFn on CPU tensors (K3's twin forward; K4's twin + the dense
+    dW/dx backward) against jax.vjp of the fused core at n = 256, K = 128,
+    H = 512; fp32 to the tolerances of tests/test_gated_mlp.py, bf16 2e-2."""
+    import jax
+
+    jdt, tdt, _ = DTYPES[dtype]
+    x, w = mlp_inputs(33, n=256, k=128, h=512)
+    h = w.shape[0] // 2
+    g = np.random.default_rng(34).standard_normal((256, h), dtype=np.float32)
+    wj = to_jax(w.T, jdt)
+    with pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(_gated_core, to_jax(x, jdt), wj[:, :h], wj[:, h:])
+        dx_ref, dwu_ref, dwv_ref = vjp(to_jax(g, jdt))
+    dw_ref = np.concatenate([as_np(dwu_ref).T, as_np(dwv_ref).T])
+
+    xt, wt = to_torch(x, tdt).requires_grad_(), to_torch(w, tdt).requires_grad_()
+    gated_mlp(xt.reshape(4, 64, 128), wt, use_kernel=True).backward(to_torch(g, tdt).reshape(4, 64, h))
+    tol = MLP_TOL[dtype] if dtype == "bf16" else dict(rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(as_np(xt.grad), as_np(dx_ref), **tol)
+    np.testing.assert_allclose(as_np(wt.grad), dw_ref, **tol)
+
+    with torch.no_grad():
+        dx, dw = gated_mlp_bwd_ref(to_torch(x, tdt), to_torch(w, tdt), to_torch(g, tdt))
+    assert torch.equal(dx, xt.grad) and torch.equal(dw, wt.grad)
+    duv = gated_mlp_duv_ref(to_torch(x, tdt), to_torch(w, tdt), to_torch(g, tdt))
+    assert duv.shape == (256, 2 * h) and duv.dtype == tdt
+
+
+def test_k4_kernel_wrapper_refuses_cpu_tensors():
+    x, w = (to_torch(a, torch.bfloat16) for a in mlp_inputs(35, n=16, k=64, h=64))
+    before = gated_mlp_bwd_duv.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        gated_mlp_bwd_duv(x, w, torch.zeros(16, 64, dtype=torch.bfloat16))
+    assert gated_mlp_bwd_duv.launches == before
+
+
+def test_fused_qkv_gradient_is_k2s_buffer_without_a_copy():
+    """K2 writes dq, dk, dv as adjacent views of one [B, T, 3, H, D] buffer;
+    SplitFusedHeads hands that buffer back as the fused QKV gradient without
+    copying it, and concatenates any other gradients."""
+    from types import SimpleNamespace
+
+    from nvit_tpu_torch.models.blocks import SplitFusedHeads, merge_heads, split_heads
+
+    b, t, h, d = 2, 5, 3, 4
+    x = torch.randn(b, t, 3 * h * d)
+    q, k, v = SplitFusedHeads.apply(x, 3, h)
+    for got, want in zip((q, k, v), torch.chunk(x, 3, dim=-1)):
+        assert torch.equal(got, split_heads(want, h))
+    ctx = SimpleNamespace(dims=(b, t, 3, h, d))
+    buf = torch.randn(b, t, 3, h, d)
+    grads = [buf[:, :, i].permute(0, 2, 1, 3) for i in range(3)]
+    want = torch.cat([merge_heads(g) for g in grads], dim=-1)
+    fused, *_ = SplitFusedHeads.backward(ctx, *grads)
+    assert fused.data_ptr() == buf.data_ptr() and torch.equal(fused, want)
+    separate = [g.contiguous() for g in grads]  # the CPU twin's gradients
+    fused, *_ = SplitFusedHeads.backward(ctx, *separate)
+    assert fused.data_ptr() != buf.data_ptr() and torch.equal(fused, want)
