@@ -9,28 +9,35 @@ Phases (any failure raises, and the script exits non-zero with no result):
 
 1. device   — card name and power limit, torch/CUDA versions; requires
                compute capability 9.0; TF32 off for matmuls and cuDNN;
-2. build    — compiles the four kernels from nvit_tpu_torch/csrc/, one nvcc
-               per source, all started together;
-3. kernels  — K1/K2 (QK-norm flash attention fwd/bwd) and K3/K4 (gated MLP
-               fwd/bwd) against their plain PyTorch twins at the main paths'
-               shapes and at ragged ones, and the autograd Functions' CUDA
-               gradients against autograd through the twins;
-4. serve    — nViT-B/16 (random weights from a seed) behind InferenceService
-               + make_handler on a local ThreadingHTTPServer: /predict at
-               batches 1, 4 and 32, /healthz, /stats; K1 and K3 must launch
-               13 times per forward and K2/K4 never; served probabilities
-               against the same weights on the plain path (flash_attn=False,
-               gated MLP off);
-5. train    — flagship_config() nViT-B/16 training at batch 32, bf16: one
-               make_train_step step launches K1–K4 13 times each; loss and
-               per-group gradients against the plain path on the same
-               weights and batch; ten steps on one batch lower the loss;
-               step time, img/s, MFU and peak memory on both paths;
-               Trainer.train() on synthetic 224 px data writes metrics.jsonl;
-6. times    — each kernel against its twin, the unfused chain and (attention)
-               PyTorch's fused SDPA, by CUDA events; forward latency at batch
-               1 and 32 and img/s on the kernel and plain paths.
+2. build    — compiles the six kernel sources from nvit_tpu_torch/csrc/, one
+               nvcc per source, all started together;
+3. kernels  — K1/K2 (QK-norm flash attention fwd/bwd), K3/K4 (gated MLP
+               fwd/bwd), K7 (flash attention fwd), K8 and K9 (its fused and
+               split backward, one source) against their plain PyTorch twins
+               at the main paths' shapes and at ragged ones, and the autograd
+               Functions' CUDA gradients against autograd through the twins;
+then for each mode — nViT-B/16 (``use_nvit=True``) and the baseline ViT-B/16
+(``flagship_config(use_nvit=False)``), random weights from a seed:
+4. serve    — behind InferenceService + make_handler on a local
+               ThreadingHTTPServer: /predict at batches 1, 4 and 32, /healthz,
+               /stats; the mode's attention forward (K1, or K7) and K3 must
+               launch 13 times per forward and no other kernel; served
+               probabilities against the same weights on the plain path
+               (flash_attn=False, gated MLP off);
+5. times    — each of the mode's kernels against its twin, the unfused chain
+               and (attention) PyTorch's fused SDPA, by CUDA events (K9 at
+               T = 1100, where the JAX package takes it); forward latency at
+               batch 1 and 32 and img/s on the kernel and plain paths;
+6. train    — training at batch 32, bf16: one make_train_step step launches
+               the mode's four kernels (K1–K4, or K7, K8, K3, K4) 13 times
+               each and no other; loss and per-group gradients against the
+               plain path on the same weights and batch; ten steps on one
+               batch lower the loss; step time, img/s, MFU and peak memory on
+               both paths; Trainer.train() on synthetic 224 px data (made once
+               and reused by the second mode) writes metrics.jsonl.
 
+K9 is not on either main path (T = 784 ≤ 1024 takes K8), so its launch count
+in the summary is 0; the kernels phase checks it and the times phase times it.
 The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -85,6 +92,18 @@ KERNELS = {  # summary name → (source, TPU kernel it replaces)
     "qknorm_attn_bwd": ("nvit_tpu_torch/csrc/qknorm_attn_bwd.cu", "nvit_tpu/ops/flash_attention.py:558"),
     "gated_mlp_fwd": ("nvit_tpu_torch/csrc/gated_mlp_fwd.cu", "nvit_tpu/ops/gated_mlp.py:96"),
     "gated_mlp_bwd": ("nvit_tpu_torch/csrc/gated_mlp_bwd.cu", "nvit_tpu/ops/gated_mlp.py:104"),
+    "flash_attn_fwd": ("nvit_tpu_torch/csrc/flash_attn_fwd.cu", "nvit_tpu/ops/flash_attention.py:83"),
+    "flash_attn_bwd_fused": ("nvit_tpu_torch/csrc/flash_attn_bwd.cu", "nvit_tpu/ops/flash_attention.py:214"),
+    "flash_attn_bwd_split": ("nvit_tpu_torch/csrc/flash_attn_bwd.cu", "nvit_tpu/ops/flash_attention.py:154"),
+}
+SOURCES = sorted({Path(src).stem for src, _ in KERNELS.values()})
+# the kernels each mode's serving forward and training step launch, 13 times
+# each (12 blocks + the shared cross-attention); every other kernel never
+MODE_KERNELS = {
+    "nvit": {"forward": ("qknorm_attn_fwd", "gated_mlp_fwd"),
+             "step": ("qknorm_attn_fwd", "qknorm_attn_bwd", "gated_mlp_fwd", "gated_mlp_bwd")},
+    "baseline": {"forward": ("flash_attn_fwd", "gated_mlp_fwd"),
+                 "step": ("flash_attn_fwd", "flash_attn_bwd_fused", "gated_mlp_fwd", "gated_mlp_bwd")},
 }
 
 
@@ -147,11 +166,20 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
 
 
 def launch_counts() -> dict:
-    from nvit_tpu_torch.ops.flash_attention import qknorm_attention_bwd, qknorm_attention_fwd
+    from nvit_tpu_torch.ops import flash_attention as fa
     from nvit_tpu_torch.ops.gated_mlp import gated_mlp_bwd_duv, gated_mlp_fwd
 
-    return {"qknorm_attn_fwd": qknorm_attention_fwd, "qknorm_attn_bwd": qknorm_attention_bwd,
-            "gated_mlp_fwd": gated_mlp_fwd, "gated_mlp_bwd": gated_mlp_bwd_duv}
+    return {"qknorm_attn_fwd": fa.qknorm_attention_fwd, "qknorm_attn_bwd": fa.qknorm_attention_bwd,
+            "gated_mlp_fwd": gated_mlp_fwd, "gated_mlp_bwd": gated_mlp_bwd_duv,
+            "flash_attn_fwd": fa.flash_attention_fwd, "flash_attn_bwd_fused": fa.attention_bwd_fused,
+            "flash_attn_bwd_split": fa.attention_bwd_split}
+
+
+def check_launches(launches: dict, expected: dict, what: str) -> None:
+    """Every kernel launched exactly as ``expected`` says, others never."""
+    for name, count in launches.items():
+        want = expected.get(name, 0)
+        check(count == want, f"{what}: {name} launched {count} times, expected {want}")
 
 
 def reset_counts() -> None:
@@ -192,10 +220,10 @@ def build_phase() -> None:
         build(name)
         return name, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(len(KERNELS)) as pool:  # one nvcc per source, together
-        for name, seconds in pool.map(timed, KERNELS):
+    with ThreadPoolExecutor(len(SOURCES)) as pool:  # one nvcc per source, together
+        for name, seconds in pool.map(timed, SOURCES):
             print(f"built {name} in {seconds:.3f} s")
-    for name in KERNELS:
+    for name in SOURCES:
         load_library(name)
 
 
@@ -312,7 +340,62 @@ def kernel_phase() -> dict:
     print("GatedMLPFn on CUDA vs autograd through the twin: rel L2 dx {:.3e} dW {:.3e}".format(*rel))
     check(x.grad is not None and w.grad is not None, "GatedMLPFn: a CUDA forward lost its gradient")
     check(max(rel) <= GRAD_REL_L2, f"GatedMLPFn gradients disagree with the twin's: {rel}")
+    baseline_kernel_checks(errs)
     return errs
+
+
+def baseline_kernel_checks(errs: dict) -> None:
+    """K7, K8 and K9 against their twins (q/k/v as views of a fused QKV
+    buffer, as a Block makes them), and FlashAttnFn's CUDA gradients."""
+    from nvit_tpu_torch.ops import flash_attention as fa
+
+    for b, h, t, d in ((4, 12, 784, 64), (2, 4, 100, 32)):  # the flagship; ragged T, head dim 32
+        q, k, v, _, do = qkv_view_inputs(b, h, t, d, seed=t + 2)
+        scale = 1.0 / float(d) ** 0.5
+        o, lse = fa.flash_attention_fwd(q, k, v, scale, with_lse=True)
+        o_ref, lse_ref = fa.flash_attention_ref(q, k, v, scale)
+        got = fa.attention_bwd_fused(q, k, v, o, lse, do, scale)
+        want = fa.attention_bwd_fused_ref(q, k, v, o, lse, do, scale)
+        torch.cuda.synchronize()
+        eo, el = max_err(o, o_ref), max_err(lse, lse_ref)
+        e = [max_err(a, r) for a, r in zip(got, want)]
+        print(f"K7 [B={b}, H={h}, T={t}, D={d}] scale {scale:g}: max|o-o_ref| {eo:.3e}, "
+              f"max|lse-lse_ref| {el:.3e}; K8: max|Δ| dq {e[0]:.3e} dk {e[1]:.3e} dv {e[2]:.3e}")
+        torch.testing.assert_close(o.float(), o_ref.float(), **KERNEL_TOL)
+        torch.testing.assert_close(lse, lse_ref, **LSE_TOL)
+        for a, r in zip(got, want):
+            torch.testing.assert_close(a.float(), r.float(), **KERNEL_TOL)
+        errs["flash_attn_fwd"] = max(errs.get("flash_attn_fwd", 0.0), eo)
+        errs["flash_attn_bwd_fused"] = max(errs.get("flash_attn_bwd_fused", 0.0), *e)
+
+    # K9 where the JAX package takes it (T_pad > 1024), and ragged at head dim 32
+    for b, h, t, d in ((2, 12, 1100, 64), (2, 4, 1100, 32)):
+        q, k, v, _, do = qkv_view_inputs(b, h, t, d, seed=t + d)
+        scale = 1.0 / float(d) ** 0.5
+        o, lse = fa.flash_attention_fwd(q, k, v, scale, with_lse=True)
+        delta = fa.attention_delta(o, do)
+        got = fa.attention_bwd_split(q, k, v, do, lse, delta, scale)
+        want = (fa.attention_dq_ref(q, k, v, do, lse, delta, scale),
+                *fa.attention_dkv_ref(q, k, v, do, lse, delta, scale))
+        torch.cuda.synchronize()
+        e = [max_err(a, r) for a, r in zip(got, want)]
+        print(f"K9 [B={b}, H={h}, T={t}, D={d}]: max|Δ| dq {e[0]:.3e} dk {e[1]:.3e} dv {e[2]:.3e}")
+        for a, r in zip(got, want):
+            torch.testing.assert_close(a.float(), r.float(), **KERNEL_TOL)
+        errs["flash_attn_bwd_split"] = max(errs.get("flash_attn_bwd_split", 0.0), *e)
+
+    # FlashAttnFn: a CUDA forward carries K8's (T ≤ 1024) or K9's gradients
+    for t in (784, 1100):
+        q, k, v, _, do = qkv_view_inputs(2, 12, t, 64, seed=t + 5)
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        fa.flash_attention(*leaves, 0.125).backward(do)
+        ref = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        fa.flash_attention_ref(*ref, 0.125)[0].backward(do)
+        check(all(x.grad is not None for x in leaves), "FlashAttnFn: a CUDA forward lost its gradient")
+        rel = [rel_l2(a.grad, r.grad) for a, r in zip(leaves, ref)]
+        print("FlashAttnFn on CUDA, T={}, vs autograd through the twin: rel L2 dq {:.3e} dk {:.3e} "
+              "dv {:.3e}".format(t, *rel))
+        check(max(rel) <= GRAD_REL_L2, f"FlashAttnFn gradients disagree with the twin's: {rel}")
 
 
 def post(addr, path, body, content_type):
@@ -335,13 +418,13 @@ def get(addr, path):
     return payload
 
 
-def serve_phase(cfg, pred, plain) -> dict:
+def serve_phase(title, mode, cfg, pred, plain) -> dict:
     from http.server import ThreadingHTTPServer
 
     from nvit_tpu_torch.data.augment import normalize
     from nvit_tpu_torch.serve import InferenceService, make_handler
 
-    phase("serve nViT-B/16 over HTTP")
+    phase(f"serve {title} over HTTP")
     n_cls = cfg.model.num_classes
     service = InferenceService(pred, max_batch=32)
     service.warmup()
@@ -379,11 +462,8 @@ def serve_phase(cfg, pred, plain) -> dict:
     check(forwards == 3, f"expected 3 device forwards, /stats counts {forwards}")
     per_forward = 1 + cfg.model.n_layer  # the shared cross-attention + every block
     print(f"launches in the served run: {launches} over {forwards} forwards")
-    for name in ("qknorm_attn_fwd", "gated_mlp_fwd"):
-        check(launches[name] == per_forward * forwards,
-              f"{name} launched {launches[name]} times, expected {per_forward} per forward × {forwards}")
-    for name in ("qknorm_attn_bwd", "gated_mlp_bwd"):
-        check(launches[name] == 0, f"serving launched the backward kernel {name}")
+    check_launches(launches, {name: per_forward * forwards for name in MODE_KERNELS[mode]["forward"]},
+                   f"serving {title}")
 
     for res, b in ((r1, 1), (r4, 4), (r32, 32)):
         labels, probs = np.asarray(res["labels"]), np.asarray(res["probs"])
@@ -442,7 +522,7 @@ def time_phase(cfg, pred, plain) -> dict:
         gated_mlp_xla,
     )
 
-    phase("times")
+    phase("times, nViT")
     b = 32
     d, h = cfg.model.n_embd, cfg.model.n_head
     t, hd = cfg.model.n_patches, d // h
@@ -504,10 +584,19 @@ def time_phase(cfg, pred, plain) -> dict:
             times["gated_mlp_bwd"] = dict(ms=k4, plain_ms=k4_plain, library_ms=None, **dict(zip(
                 ("bound_ms", "bound_by"), bound(flops, (n * d + 2 * hidden * d + 3 * n * hidden) * 2))))
         del x, w, g
+    print_bounds(times)
+    forward_latency(cfg, pred, plain)
+    return times
+
+
+def print_bounds(times: dict) -> None:
     for name, tm in times.items():
         print(f"{name}: bound {tm['bound_ms']:.4f} ms ({tm['bound_by']}), kernel at "
               f"{100 * tm['bound_ms'] / tm['ms']:.1f}% of it")
 
+
+def forward_latency(cfg, pred, plain) -> None:
+    """Host-clock forward latency at batch 1 and 32, kernel and plain path."""
     rng = np.random.default_rng(1)
     shape = (3, cfg.model.image_size, cfg.model.image_size)
     for batch, iters in ((1, 30), (32, 10)):
@@ -523,6 +612,75 @@ def time_phase(cfg, pred, plain) -> dict:
             ms = statistics.mean(got[name])
             print(f"forward batch {batch} ({name} path): {ms:.3f} ms median "
                   f"(runs {', '.join(f'{m:.3f}' for m in got[name])}), {batch * 1e3 / ms:.1f} img/s")
+
+
+def baseline_time_phase(cfg, pred, plain) -> dict:
+    """K7, K8 at the batch-32 shapes and K9 at T = 1100 (where the JAX
+    package takes the split kernels), each against its plain twin, the
+    flash_attn=False chain (autograd through ``sdpa`` for the backwards) and
+    PyTorch's fused SDPA, which computes exactly the same function here
+    (library_ms: a yardstick, used nowhere in the port); then the baseline
+    forward's latency."""
+    import torch.nn.functional as F
+
+    from nvit_tpu_torch.ops import flash_attention as fa
+    from nvit_tpu_torch.ops.attention import sdpa
+
+    phase("times, baseline")
+    b = 32
+    d, h = cfg.model.n_embd, cfg.model.n_head
+    hd = d // h
+    scale = 1.0 / float(hd) ** 0.5
+    times = {}
+
+    t = cfg.model.n_patches
+    q, k, v, _, do = qkv_view_inputs(b, h, t, hd, seed=11)
+    k7 = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, scale))
+    k7_plain = cuda_ms(lambda: fa.flash_attention_ref(q, k, v, scale))
+    k7_off = cuda_ms(lambda: sdpa(q, k, v, scale))
+    k7_lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
+    print(f"K7 [B={b}, H={h}, T={t}, D={hd}]: kernel {k7:.4f} ms, plain twin {k7_plain:.4f} ms, "
+          f"flash_attn=False chain {k7_off:.4f} ms, SDPA {k7_lib:.4f} ms")
+    times["flash_attn_fwd"] = dict(ms=k7, plain_ms=k7_plain, library_ms=k7_lib, **dict(zip(
+        ("bound_ms", "bound_by"), bound(4 * b * h * t * t * hd, 4 * b * h * t * hd * 2))))
+
+    def backward_times(t, q, k, v, do, kernel):
+        """(kernel, twin, flash_attn=False autograd, SDPA backward) ms."""
+        ms = cuda_ms(kernel)
+        o, lse = fa.flash_attention_ref(q, k, v, scale)
+        twin = (lambda: fa.attention_bwd_fused_ref(q, k, v, o, lse, do, scale)) if t <= fa.FUSED_BWD_MAX_T \
+            else (lambda: (fa.attention_dq_ref(q, k, v, do, lse, fa.attention_delta(o, do), scale),
+                           fa.attention_dkv_ref(q, k, v, do, lse, fa.attention_delta(o, do), scale)))
+        plain_ms = cuda_ms(twin, iters=5)
+        del o, lse
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        out = sdpa(*leaves, scale)
+        off = cuda_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), iters=5)
+        out = F.scaled_dot_product_attention(*leaves, scale=scale)
+        lib = cuda_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True))
+        return ms, plain_ms, off, lib
+
+    o, lse = fa.flash_attention_fwd(q, k, v, scale, with_lse=True)
+    k8 = backward_times(t, q, k, v, do, lambda: fa.attention_bwd_fused(q, k, v, o, lse, do, scale))
+    print(f"K8 [B={b}, H={h}, T={t}, D={hd}]: kernel {k8[0]:.4f} ms, plain twin {k8[1]:.4f} ms (median "
+          f"of 5), flash_attn=False autograd backward {k8[2]:.4f} ms (median of 5), SDPA backward {k8[3]:.4f} ms")
+    times["flash_attn_bwd_fused"] = dict(ms=k8[0], plain_ms=k8[1], library_ms=k8[3], **dict(zip(
+        ("bound_ms", "bound_by"), bound(10 * b * h * t * t * hd, 8 * b * h * t * hd * 2 + b * h * t * 4))))
+    del q, k, v, do, o, lse
+
+    t = 1100
+    q, k, v, _, do = qkv_view_inputs(b, h, t, hd, seed=12)
+    o, lse = fa.flash_attention_fwd(q, k, v, scale, with_lse=True)
+    delta = fa.attention_delta(o, do)
+    k9 = backward_times(t, q, k, v, do, lambda: fa.attention_bwd_split(q, k, v, do, lse, delta, scale))
+    print(f"K9 [B={b}, H={h}, T={t}, D={hd}]: kernel {k9[0]:.4f} ms, plain twins {k9[1]:.4f} ms (median "
+          f"of 5), flash_attn=False autograd backward {k9[2]:.4f} ms (median of 5), SDPA backward {k9[3]:.4f} ms")
+    times["flash_attn_bwd_split"] = dict(ms=k9[0], plain_ms=k9[1], library_ms=k9[3], **dict(zip(
+        ("bound_ms", "bound_by"), bound(10 * b * h * t * t * hd, 7 * b * h * t * hd * 2 + 2 * b * h * t * 4))))
+    del q, k, v, do, o, lse, delta
+    torch.cuda.empty_cache()
+    print_bounds(times)
+    forward_latency(cfg, pred, plain)
     return times
 
 
@@ -538,6 +696,19 @@ GRAD_GROUPS = {
     "embeds": r"(local_patch_embed|global_patch_embed|local_pos_embed|global_pos_embed).*",
     "head": r"(mlp_head\..+|sz)",
 }
+# baseline mode: no sqk, suv, alphas or sz; the blocks' RMSNorm gains.  The
+# block returns x + …, with x = rms_norm(h) ∝ h, so norm_skip's justnorm VJP
+# (⟂ its input) leaves d skip_param a near-cancellation; it is grouped with
+# the other per-block gains and printed alone
+BASELINE_GRAD_GROUPS = {
+    "blocks q/k/v": GRAD_GROUPS["blocks q/k/v"],
+    "c_fc": GRAD_GROUPS["c_fc"],
+    "c_projs": GRAD_GROUPS["c_projs"],
+    "rmsnorms, skip_param": r"transformer\.h\.\d+\.(rmsnorm_att\.weight|rmsnorm_mlp\.weight|skip_param)",
+    "cross-attention": GRAD_GROUPS["cross-attention"],
+    "embeds": GRAD_GROUPS["embeds"],
+    "head": r"mlp_head\..+",
+}
 
 
 def sync_step(step, state, images, labels):
@@ -546,7 +717,7 @@ def sync_step(step, state, images, labels):
     return out
 
 
-def train_phase(smi: str) -> dict:
+def train_phase(smi: str, title: str, mode: str, cfg, grad_groups: dict) -> dict:
     import re
     import shutil
     import tempfile
@@ -554,18 +725,16 @@ def train_phase(smi: str) -> dict:
     from nvit_tpu_torch.configs import AugmentationConfig
     from nvit_tpu_torch.data.augment import normalize
     from nvit_tpu_torch.data.datasets import make_synthetic
-    from nvit_tpu_torch.models.presets import flagship_config
     from nvit_tpu_torch.models.vit import ViT, estimate_flops_per_iter, num_params
     from nvit_tpu_torch.train.optim import init_fused_adamw
     from nvit_tpu_torch.train.state import TrainState, create_train_state
     from nvit_tpu_torch.train.step import make_loss_fn, make_train_step
     from nvit_tpu_torch.train.trainer import Trainer
 
-    phase("train nViT-B/16 (flagship_config: batch 32, bf16, fp32 params and moments, no remat)")
-    cfg = flagship_config()
+    phase(f"train {title} (flagship_config: batch 32, bf16, fp32 params and moments, no remat)")
     m = cfg.model
-    check(m.flash_attn and m.use_nvit and not cfg.system.remat and cfg.training.batch_size == 32,
-          "flagship training config drifted")
+    check(m.flash_attn and m.use_nvit == (mode == "nvit") and not cfg.system.remat
+          and cfg.training.batch_size == 32, "flagship training config drifted")
     b = cfg.training.batch_size
     data = make_synthetic(num_examples=b, image_size=m.image_size, num_classes=m.num_classes, seed=0)
     images = normalize(torch.from_numpy(data.images).cuda())
@@ -588,7 +757,7 @@ def train_phase(smi: str) -> dict:
     check(dl <= TRAIN_LOSS_RTOL, "the kernel path's loss disagrees with the plain path's")
     grouped = set()
     worst = 0.0
-    for group, pattern in GRAD_GROUPS.items():
+    for group, pattern in grad_groups.items():
         names = [n for n in grads["plain"] if re.fullmatch(pattern, n)]
         grouped.update(names)
         gk = torch.cat([grads["kernel"][n].flatten() for n in names])
@@ -598,6 +767,9 @@ def train_phase(smi: str) -> dict:
         print(f"grad {group} ({len(names)} tensors, {gp.numel()} values): relative L2 {rel:.3e}")
     check(grouped == set(grads["plain"]) == set(grads["kernel"]), "a gradient is in no group")
     check(worst <= GRAD_REL_L2, f"gradients disagree with the plain path: worst group {worst:.3e}")
+    skips = [n for n in grads["plain"] if n.endswith("skip_param")]
+    print("grad skip_param alone: relative L2 {:.3e}".format(rel_l2(
+        torch.cat([grads["kernel"][n] for n in skips]), torch.cat([grads["plain"][n] for n in skips]))))
     del grads
     for model in (state.model, plain_model):
         model.zero_grad(set_to_none=True)
@@ -610,8 +782,7 @@ def train_phase(smi: str) -> dict:
     launches = read_counts()
     per_step = 1 + m.n_layer
     print(f"launches in one training step: {launches}")
-    for name, count in launches.items():
-        check(count == per_step, f"{name} launched {count} times in one step, expected {per_step}")
+    check_launches(launches, {name: per_step for name in MODE_KERNELS[mode]["step"]}, "one training step")
 
     # step time on both paths: plain, kernel, kernel, plain
     plain_state = TrainState(model=plain_model, opt_state=init_fused_adamw(plain_model.named_parameters()),
@@ -693,12 +864,31 @@ def train_phase(smi: str) -> dict:
     check(trainer_peak <= TRAINER_PEAK_MARGIN * peak["kernel"],
           f"the Trainer's peak memory {trainer_peak:.3f} GiB is above one step's {peak['kernel']:.3f} GiB")
     check((out_dir / "finished").read_text() == f"max_iters:{iters}", "no finished sentinel")
-    for name in ("qknorm_attn_bwd", "gated_mlp_bwd"):
-        check(trainer_launches[name] == iters * per_step, f"Trainer: {name} launched {trainer_launches[name]}")
-    for name in ("qknorm_attn_fwd", "gated_mlp_fwd"):
-        check(trainer_launches[name] >= iters * per_step, f"Trainer: {name} launched {trainer_launches[name]}")
+    for name, count in trainer_launches.items():  # the evals add forwards, not backwards
+        if name in MODE_KERNELS[mode]["forward"]:
+            check(count >= iters * per_step, f"Trainer: {name} launched {count}")
+        else:
+            want = iters * per_step if name in MODE_KERNELS[mode]["step"] else 0
+            check(count == want, f"Trainer: {name} launched {count}, expected {want}")
     shutil.rmtree(out_dir)
     return launches
+
+
+def reuse_synthetic_data() -> None:
+    """Trainer.train() makes its synthetic 224 px arrays itself (~13 s); the
+    second mode's trainer gets the first one's, which are the same arrays
+    from the same seeds."""
+    import nvit_tpu_torch.train.trainer as trainer_module
+
+    load, made = trainer_module.load_dataset, {}
+
+    def load_once(dataset, data_dir, **kw):
+        key = (dataset, *sorted(kw.items()))
+        if key not in made:
+            made[key] = load(dataset, data_dir, **kw)
+        return made[key]
+
+    trainer_module.load_dataset = load_once
 
 
 def main() -> int:
@@ -709,32 +899,42 @@ def main() -> int:
 
     from nvit_tpu_torch.configs import Config, ViTConfig
     from nvit_tpu_torch.infer import Predictor
-    from nvit_tpu_torch.models.presets import preset
+    from nvit_tpu_torch.models.presets import flagship_config, preset
     from nvit_tpu_torch.models.vit import ViT
 
     smi = device_phase()
     build_phase()
     errs = kernel_phase()
+    reuse_synthetic_data()
 
-    cfg = Config(model=ViTConfig(**preset("nvit-b16"), num_classes=1000))
-    check(cfg.model.flash_attn and cfg.model.bounded_softmax == "rowmax", "flagship config drifted")
-    pred = Predictor.from_config(cfg, seed=0, device="cuda")
-    plain_cfg = dataclasses.replace(cfg.model, flash_attn=False, gated_mlp_kernel="off")
-    plain_model = ViT(plain_cfg, device="cuda")
-    plain_model.load_state_dict(pred.model.state_dict(), strict=True)
-    plain = Predictor(plain_model, plain_cfg, device="cuda")
+    nvit_cfg = Config(model=ViTConfig(**preset("nvit-b16"), num_classes=1000))
+    check(nvit_cfg.model.flash_attn and nvit_cfg.model.bounded_softmax == "rowmax", "flagship config drifted")
+    base_cfg = flagship_config(use_nvit=False)
+    modes = (  # (mode, title, serving config, training config, times, gradient groups)
+        ("nvit", "nViT-B/16", nvit_cfg, flagship_config(), time_phase, GRAD_GROUPS),
+        ("baseline", "baseline ViT-B/16", base_cfg, base_cfg, baseline_time_phase, BASELINE_GRAD_GROUPS),
+    )
+    times, launches = {}, {}
+    for mode, title, serve_cfg, train_cfg, time_fn, groups in modes:
+        pred = Predictor.from_config(serve_cfg, seed=0, device="cuda")
+        plain_cfg = dataclasses.replace(serve_cfg.model, flash_attn=False, gated_mlp_kernel="off")
+        plain_model = ViT(plain_cfg, device="cuda")
+        plain_model.load_state_dict(pred.model.state_dict(), strict=True)
+        plain = Predictor(plain_model, plain_cfg, device="cuda")
+        served = serve_phase(title, mode, serve_cfg, pred, plain)
+        times.update(time_fn(serve_cfg, pred, plain))
+        del pred, plain, plain_model
+        gc.collect()
+        torch.cuda.empty_cache()
+        stepped = train_phase(smi, title, mode, train_cfg, groups)
+        # launches: the forwards' from the serving path, the backwards' from
+        # one training step (each path driven with every count set to 0 just before)
+        for name in MODE_KERNELS[mode]["step"]:
+            launches[name] = served[name] if name in MODE_KERNELS[mode]["forward"] else stepped[name]
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches["flash_attn_bwd_split"] = stepped["flash_attn_bwd_split"]  # 0: T = 784 takes K8
 
-    serve_launches = serve_phase(cfg, pred, plain)
-    times = time_phase(cfg, pred, plain)
-    del pred, plain, plain_model
-    gc.collect()
-    torch.cuda.empty_cache()
-    train_launches = train_phase(smi)
-
-    # launches: the forwards' from the serving path, the backwards' from one
-    # training step (each path driven with every count set to 0 just before)
-    launches = {**train_launches, "qknorm_attn_fwd": serve_launches["qknorm_attn_fwd"],
-                "gated_mlp_fwd": serve_launches["gated_mlp_fwd"]}
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": launches[name], "max_abs_err": errs[name], **times[name]}

@@ -9,10 +9,12 @@ package import pulls jax):
   Conv2d ``[d, C, k, k]`` through the inverse of
   ``models.patch.global_embed_permutation``.
 
-The keys are the port's ``ViT.state_dict()`` keys, which equal those of
-``nvit_tpu/ckpt/torch_interop.py::state_dict_from_params`` without the unused
-nViT ``rmsnorm_att/mlp`` weights.  Load the result with
-``ViT.load_state_dict(sd, strict=True)``.
+The keys are the port's ``ViT.state_dict()`` keys.  In nViT mode they equal
+those of ``nvit_tpu/ckpt/torch_interop.py::state_dict_from_params`` without
+the unused ``rmsnorm_att/mlp`` weights; in baseline mode (no ``sz``, no scale
+vectors, the cross-attention's ``local_norm``/``global_norm``) those plus the
+blocks' ``rmsnorm_att/mlp`` weights, which that function drops.  Load the
+result with ``ViT.load_state_dict(sd, strict=True)``.
 """
 
 from __future__ import annotations
@@ -59,8 +61,12 @@ def state_dict_from_jax(params: Mapping[str, Any], cfg: ViTConfig) -> dict[str, 
     ca = params["cross_attention"]
     for name in ("q_local", "k_global", "v_global", "proj", "out_proj"):
         _linear(ca[name], f"cross_attention.{name}", sd)
-    sd["cross_attention.attn_alpha"] = _t(ca["attn_alpha"])
-    sd["cross_attention.sqk"] = _t(ca["sqk"])
+    if cfg.use_nvit:
+        sd["cross_attention.attn_alpha"] = _t(ca["attn_alpha"])
+        sd["cross_attention.sqk"] = _t(ca["sqk"])
+    else:
+        sd["cross_attention.local_norm.weight"] = _t(ca["local_norm"])
+        sd["cross_attention.global_norm.weight"] = _t(ca["global_norm"])
 
     _linear(params["reconstruction_head"], "reconstruction_head.0", sd)
 
@@ -68,11 +74,17 @@ def state_dict_from_jax(params: Mapping[str, Any], cfg: ViTConfig) -> dict[str, 
         prefix = f"transformer.h.{i}"
         for name in ("query", "key", "value", "att_c_proj", "c_fc", "mlp_c_proj"):
             _linear(blk[name], f"{prefix}.{name}", sd)
-        for name in ("skip_param", "attn_alpha", "mlp_alpha", "sqk", "suv"):
-            sd[f"{prefix}.{name}"] = _t(blk[name])
+        sd[f"{prefix}.skip_param"] = _t(blk["skip_param"])
+        if cfg.use_nvit:
+            for name in ("attn_alpha", "mlp_alpha", "sqk", "suv"):
+                sd[f"{prefix}.{name}"] = _t(blk[name])
+        else:
+            for name in ("rmsnorm_att", "rmsnorm_mlp"):
+                sd[f"{prefix}.{name}.weight"] = _t(blk[name])
 
     sd["mlp_head.0.weight"] = _t(params["head_norm"]["w"])
     sd["mlp_head.0.bias"] = _t(params["head_norm"]["b"])
     _linear(params["head"], "mlp_head.1", sd)
-    sd["sz"] = _t(params["sz"])
+    if cfg.use_nvit:
+        sd["sz"] = _t(params["sz"])
     return sd

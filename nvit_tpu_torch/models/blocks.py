@@ -1,9 +1,18 @@
-"""nViT transformer blocks (≙ nvit_tpu/models/blocks.py, nViT mode).
+"""Transformer blocks (≙ nvit_tpu/models/blocks.py), in both modes:
+
+* **nViT** — no pre-norm; per-head QK-norm attention scaled by ``sqk``
+  (K1/K2), softmax scale sqrt(d_head); the ``suv``-folded gated MLP; SLERP
+  residuals with learned per-channel rates;
+* **baseline** (``use_nvit=False``) — RMSNorm before attention and MLP, plain
+  flash attention (K7/K8/K9) with scale 1/sqrt(d_head), the gated MLP
+  unscaled, and additive residuals onto the NORMED input (``h = x + h_att``
+  with ``x = rms_norm(h)``, blocks.py:162, :195); the cross-attention
+  RMS-normalises both streams and has no residual at all (:227-229).
 
 ``Block`` and ``CrossAttentionBlock`` hold their parameters under the
 reference ``state_dict`` names (``query.weight`` ``[out, in]``, ``sqk``,
-``suv``, …) and apply them with the JAX package's casting and rounding
-contract.  Baseline mode (pre-RMSNorm blocks) is not ported yet.
+``rmsnorm_att.weight``, …) and apply them with the JAX package's casting and
+rounding contract.
 """
 
 from __future__ import annotations
@@ -15,8 +24,9 @@ from torch import nn
 
 from nvit_tpu_torch.configs import ViTConfig
 from nvit_tpu_torch.core.layers import concat_linears, linear
+from nvit_tpu_torch.core.norms import rms_norm
 from nvit_tpu_torch.core.residual import slerp_residual
-from nvit_tpu_torch.ops.attention import attention_qknorm
+from nvit_tpu_torch.ops.attention import attention, attention_qknorm
 from nvit_tpu_torch.ops.gated_mlp import gated_mlp
 
 # fixed (init_value, init_scaling) constants of the learned scale vectors
@@ -113,8 +123,20 @@ def _scale_vector(d: int, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(d, dtype=torch.float32, device=device))
 
 
+class RMSNorm(nn.Module):
+    """The baseline's RMS norm with an fp32 per-channel ``weight``
+    (≙ core/norms.py:rms_norm, whose rounding it keeps)."""
+
+    def __init__(self, d: int, *, device):
+        super().__init__()
+        self.weight = _scale_vector(d, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return rms_norm(x, self.weight)
+
+
 class Block(nn.Module):
-    """Self-attention block, nViT mode (≙ blocks.py:block_apply)."""
+    """Self-attention block (≙ blocks.py:init_block, block_apply)."""
 
     def __init__(self, cfg: ViTConfig, *, device: torch.device | str):
         super().__init__()
@@ -128,10 +150,14 @@ class Block(nn.Module):
         self.c_fc = nn.Linear(d, 2 * 4 * d, **kw)
         self.mlp_c_proj = nn.Linear(4 * d, d, **kw)
         self.skip_param = nn.Parameter(torch.empty(1, device=device))
-        self.attn_alpha = _scale_vector(d, device)
-        self.mlp_alpha = _scale_vector(d, device)
-        self.sqk = _scale_vector(d, device)
-        self.suv = _scale_vector(2 * 4 * d, device)
+        if cfg.use_nvit:
+            self.attn_alpha = _scale_vector(d, device)
+            self.mlp_alpha = _scale_vector(d, device)
+            self.sqk = _scale_vector(d, device)
+            self.suv = _scale_vector(2 * 4 * d, device)
+        else:
+            self.rmsnorm_att = RMSNorm(d, device=device)
+            self.rmsnorm_mlp = RMSNorm(d, device=device)
 
     @torch.no_grad()
     def init_weights(self, g: torch.Generator) -> None:
@@ -142,6 +168,10 @@ class Block(nn.Module):
                          (self.mlp_c_proj, c_proj_std)):
             init_linear(lin, g, std)
         self.skip_param.fill_(1.0)
+        if not cfg.use_nvit:
+            self.rmsnorm_att.weight.fill_(1.0)
+            self.rmsnorm_mlp.weight.fill_(1.0)
+            return
         for p in (self.attn_alpha, self.mlp_alpha, self.sqk):
             p.fill_(cfg.base_scale)
         self.suv.fill_(SUV_INIT_SCALING)
@@ -149,31 +179,45 @@ class Block(nn.Module):
     def forward(self, h: torch.Tensor, *, compute_dtype: torch.dtype | None = None) -> torch.Tensor:
         """Block output WITHOUT the outer norm_skip (the ViT loop applies it)."""
         cfg, dt = self.cfg, compute_dtype
-        h_in = h
-        # fused QKV: one matmul reads h once (≙ blocks.py:140-142)
+        nvit = cfg.use_nvit
+        x = h if nvit else self.rmsnorm_att(h)
+        # fused QKV: one matmul reads x once (≙ blocks.py:140-142)
         w_qkv, b_qkv = concat_linears([(m.weight, m.bias) for m in (self.query, self.key, self.value)])
-        qkv = linear(h, w_qkv, b_qkv, compute_dtype=dt)
+        qkv = linear(x, w_qkv, b_qkv, compute_dtype=dt)
         q, k, v = SplitFusedHeads.apply(qkv, 3, cfg.n_head)
-        att = attention_qknorm(
-            q, k, v, sqk_eff(self.sqk, cfg), math.sqrt(cfg.head_dim),
-            use_flash=cfg.flash_attn, bounded_softmax=cfg.bounded_softmax,
-        )
+        if nvit:
+            att = attention_qknorm(
+                q, k, v, sqk_eff(self.sqk, cfg), math.sqrt(cfg.head_dim),
+                use_flash=cfg.flash_attn, bounded_softmax=cfg.bounded_softmax,
+            )
+        else:
+            att = attention(q, k, v, 1.0 / math.sqrt(cfg.head_dim), use_flash=cfg.flash_attn)
         h_att = linear(merge_heads(att), self.att_c_proj.weight, self.att_c_proj.bias, compute_dtype=dt)
-        h = slerp_residual(h_in, h_att, self.attn_alpha, ATTN_ALPHA_INIT_VALUE, cfg.base_scale)
+        if nvit:
+            h = slerp_residual(h, h_att, self.attn_alpha, ATTN_ALPHA_INIT_VALUE, cfg.base_scale)
+        else:
+            h = x + h_att
 
-        # weight-side suv fold: suv·(x Wᵀ) ≡ x (suv ⊙ W)ᵀ, so scale the ROWS of
-        # the [2H, K] weight in fp32 before the cast (≙ blocks.py:174-186)
-        suv = self.suv * ((SUV_INIT_VALUE / SUV_INIT_SCALING) * math.sqrt(cfg.n_embd))
-        w_fc = self.c_fc.weight * suv[:, None]
-        b_fc = self.c_fc.bias * suv if self.c_fc.bias is not None else None
-        x_mlp = gated_linear(h, w_fc, b_fc, compute_dtype=dt, use_kernel=use_mlp_kernel(cfg))
+        x = h if nvit else self.rmsnorm_mlp(h)
+        w_fc, b_fc = self.c_fc.weight, self.c_fc.bias
+        if nvit:
+            # weight-side suv fold: suv·(x Wᵀ) ≡ x (suv ⊙ W)ᵀ, so scale the ROWS
+            # of the [2H, K] weight in fp32 before the cast (≙ blocks.py:174-186)
+            suv = self.suv * ((SUV_INIT_VALUE / SUV_INIT_SCALING) * math.sqrt(cfg.n_embd))
+            w_fc = w_fc * suv[:, None]
+            b_fc = b_fc * suv if b_fc is not None else None
+        x_mlp = gated_linear(x, w_fc, b_fc, compute_dtype=dt, use_kernel=use_mlp_kernel(cfg))
         h_mlp = linear(x_mlp, self.mlp_c_proj.weight, self.mlp_c_proj.bias, compute_dtype=dt)
-        return slerp_residual(h, h_mlp, self.mlp_alpha, MLP_ALPHA_INIT_VALUE, cfg.base_scale)
+        if nvit:
+            return slerp_residual(h, h_mlp, self.mlp_alpha, MLP_ALPHA_INIT_VALUE, cfg.base_scale)
+        return x + h_mlp
 
 
 class CrossAttentionBlock(nn.Module):
     """Q from the local stream, K/V from the global stream, gated output
-    projection, SLERP toward ``local`` (≙ blocks.py:cross_attention_apply)."""
+    projection (≙ blocks.py:cross_attention_apply); nViT SLERPs toward
+    ``local``, baseline RMS-normalises both streams first and adds no
+    residual."""
 
     def __init__(self, cfg: ViTConfig, *, device: torch.device | str):
         super().__init__()
@@ -185,33 +229,50 @@ class CrossAttentionBlock(nn.Module):
         self.v_global = nn.Linear(d, d, **kw)
         self.proj = nn.Linear(d, 2 * d, **kw)
         self.out_proj = nn.Linear(d, d, **kw)
-        self.attn_alpha = _scale_vector(d, device)
-        self.sqk = _scale_vector(d, device)
+        if cfg.use_nvit:
+            self.attn_alpha = _scale_vector(d, device)
+            self.sqk = _scale_vector(d, device)
+        else:
+            self.local_norm = RMSNorm(d, device=device)
+            self.global_norm = RMSNorm(d, device=device)
 
     @torch.no_grad()
     def init_weights(self, g: torch.Generator) -> None:
         for lin in (self.q_local, self.k_global, self.v_global, self.proj, self.out_proj):
             init_linear(lin, g, 0.02)
-        self.attn_alpha.fill_(self.cfg.base_scale)
-        self.sqk.fill_(self.cfg.base_scale)
+        if self.cfg.use_nvit:
+            self.attn_alpha.fill_(self.cfg.base_scale)
+            self.sqk.fill_(self.cfg.base_scale)
+        else:
+            self.local_norm.weight.fill_(1.0)
+            self.global_norm.weight.fill_(1.0)
 
     def forward(
         self, local: torch.Tensor, global_: torch.Tensor, *, compute_dtype: torch.dtype | None = None
     ) -> torch.Tensor:
         cfg, dt = self.cfg, compute_dtype
+        nvit = cfg.use_nvit
+        local_in = local
+        if not nvit:
+            local, global_ = self.local_norm(local), self.global_norm(global_)
         q = split_heads(linear(local, self.q_local.weight, self.q_local.bias, compute_dtype=dt), cfg.n_head)
         # fused KV: both read the global stream (≙ blocks.py:234-236)
         w_kv, b_kv = concat_linears([(m.weight, m.bias) for m in (self.k_global, self.v_global)])
         kv = linear(global_, w_kv, b_kv, compute_dtype=dt)
         k, v = (split_heads(t, cfg.n_head) for t in torch.chunk(kv, 2, dim=-1))
-        att = attention_qknorm(
-            q, k, v, sqk_eff(self.sqk, cfg), math.sqrt(cfg.head_dim),
-            use_flash=cfg.flash_attn, bounded_softmax=cfg.bounded_softmax,
-        )
+        if nvit:
+            att = attention_qknorm(
+                q, k, v, sqk_eff(self.sqk, cfg), math.sqrt(cfg.head_dim),
+                use_flash=cfg.flash_attn, bounded_softmax=cfg.bounded_softmax,
+            )
+        else:
+            att = attention(q, k, v, 1.0 / math.sqrt(cfg.head_dim), use_flash=cfg.flash_attn)
         out = gated_linear(merge_heads(att), self.proj.weight, self.proj.bias,
                            compute_dtype=dt, use_kernel=use_mlp_kernel(cfg))
         out = linear(out, self.out_proj.weight, self.out_proj.bias, compute_dtype=dt)
-        return slerp_residual(local, out, self.attn_alpha, ATTN_ALPHA_INIT_VALUE, cfg.base_scale)
+        if nvit:
+            return slerp_residual(local_in, out, self.attn_alpha, ATTN_ALPHA_INIT_VALUE, cfg.base_scale)
+        return out
 
 
 def init_linear(lin: nn.Linear, g: torch.Generator, std: float) -> None:

@@ -1,11 +1,15 @@
-"""The nViT classifier (≙ nvit_tpu/models/vit.py, non-Kohonen forward).
+"""The nViT classifier (≙ nvit_tpu/models/vit.py, non-Kohonen forward), in
+nViT and baseline (``use_nvit=False``) mode.
 
-``ViT`` carries the reference ``state_dict`` layout — exactly the keys
+``ViT`` carries the reference ``state_dict`` layout — the keys
 ``nvit_tpu/ckpt/torch_interop.py::state_dict_from_params`` emits, minus the
-unused nViT ``rmsnorm_att/mlp`` weights — so converted JAX parameters load
-with ``load_state_dict(strict=True)``.  ``forward`` returns the logits:
-dual patch embed → shared cross-attention → blocks with the outer
-``norm_skip`` → mean-pool → LayerNorm head (no compute dtype) → ``sz`` scale.
+unused nViT ``rmsnorm_att/mlp`` weights in nViT mode, plus the baseline
+blocks' ``rmsnorm_att/mlp`` weights (which that function drops) in baseline
+mode — so converted JAX parameters load with ``load_state_dict(strict=True)``.
+``forward`` returns the logits: dual patch embed → shared cross-attention →
+blocks with the outer ``norm_skip`` (both modes) → mean-pool → LayerNorm
+head (no compute dtype) → the ``sz`` scale (nViT only; baseline has no
+``sz``).
 ``forward_train`` also returns the aux losses (the reconstruction term,
 reported but not weighted into the loss without Kohonen); ``total_loss``,
 ``num_params`` and ``estimate_flops_per_iter`` follow vit.py.
@@ -38,11 +42,6 @@ def check_supported(cfg: ViTConfig) -> None:
         raise NotImplementedError(
             "use_kohonen=True: the Kohonen SOM is not ported yet (ROADMAP.md queue 1, 'Kohonen')"
         )
-    if not cfg.use_nvit:
-        raise NotImplementedError(
-            "use_nvit=False: baseline mode is not ported yet (ROADMAP.md queue 1, "
-            "'baseline + K7/K8/K9')"
-        )
 
 
 class ViT(nn.Module):
@@ -71,7 +70,8 @@ class ViT(nn.Module):
         self.mlp_head = nn.Sequential(
             nn.LayerNorm(d, device=device), nn.Linear(d, cfg.num_classes, device=device)
         )
-        self.sz = nn.Parameter(torch.empty(cfg.num_classes, device=device))
+        if cfg.use_nvit:
+            self.sz = nn.Parameter(torch.empty(cfg.num_classes, device=device))
         perm = global_embed_permutation(c, gp, lp)
         self.register_buffer(
             "global_embed_perm", torch.from_numpy(perm).to(device), persistent=False
@@ -96,7 +96,8 @@ class ViT(nn.Module):
         self.mlp_head[0].weight.fill_(1.0)
         self.mlp_head[0].bias.zero_()
         init_linear(self.mlp_head[1], g, 0.02)
-        self.sz.fill_(cfg.sz_init_value)
+        if cfg.use_nvit:
+            self.sz.fill_(cfg.sz_init_value)
         return self
 
     def embed_patches(
@@ -131,6 +132,8 @@ class ViT(nn.Module):
         norm, head = self.mlp_head[0], self.mlp_head[1]
         # the head runs without a compute dtype, exactly as vit.py:211
         logits = linear(layer_norm(x, norm.weight, norm.bias), head.weight, head.bias)
+        if not cfg.use_nvit:
+            return logits
         sz_eff = self.sz * (cfg.sz_init_value / cfg.sz_init_scaling)
         return logits.float() * sz_eff
 

@@ -1,16 +1,17 @@
 """Where the time goes: ``torch.profiler`` over the flagship's training step
-(and serving forward) on one CUDA card.
+(and serving forward) on one CUDA card, in nViT and in baseline mode.
 
     python -m nvit_tpu_torch.obs.profile_step
 
-Builds ``flagship_config()`` nViT-B/16 with random weights from a seed,
-warms up, then profiles ``STEPS`` training steps (kernel path) and as many
-serving forwards, both at ``flagship_config()``'s batch: the shape
+Builds ``flagship_config()`` nViT-B/16, then ``flagship_config(use_nvit=
+False)``, the baseline ViT-B/16, with random weights from a seed; for each
+it warms up, then profiles ``STEPS`` training steps (kernel path) and as
+many serving forwards, both at ``flagship_config()``'s batch: the shape
 chip_smoke.py measures.  For each it prints the host-clock time
 per step, the device's busy time (the sum of kernel times; the profiler's
 "Command Buffer Full" rows are waits, not work, and are left out) and its
-idle share, the time by group — K1–K4, cuBLAS GEMMs, everything else — and
-the top kernels by device time.  Times come from the card; the script
+idle share, the time by group — K1–K4, K7–K9, cuBLAS GEMMs, everything
+else — and the top kernels by device time.  Times come from the card; the script
 refuses to run without one.  The profiler slows the host side, so the
 step time here is above the untraced one chip_smoke.py reports.
 """
@@ -31,6 +32,8 @@ GROUPS = {
     "K2 qknorm_attn_bwd": ("qknorm_attn_bwd_",),
     "K3 gated_mlp_fwd": ("gated_mlp_fwd_kernel",),
     "K4 gated_mlp_bwd": ("gated_mlp_bwd_kernel",),
+    "K7 flash_attn_fwd": ("flash_attn_fwd_kernel",),
+    "K8/K9 flash_attn_bwd": ("flash_attn_bwd_",),
     "cuBLAS GEMMs": ("gemm", "cutlass", "xmma", "cublas", "nvjet"),
 }
 
@@ -96,27 +99,30 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(f"card: {smi}; torch {torch.__version__}")
-    cfg = flagship_config()
-    m, b = cfg.model, cfg.training.batch_size
-    data = make_synthetic(num_examples=b, image_size=m.image_size,
-                          num_classes=m.num_classes, seed=0)
-    images = normalize(torch.from_numpy(data.images).cuda())
-    labels = torch.from_numpy(data.labels).cuda().long()
-    state = create_train_state(cfg, seed=0, device="cuda")
-    step = make_train_step(cfg, log_norms=False)
-    for _ in range(2):
-        step(state, images, labels)
-    report(f"training step, batch {b} (kernel path)", *profile(lambda: step(state, images, labels), STEPS))
+    for mode, cfg in (("nViT-B/16", flagship_config()), ("baseline ViT-B/16", flagship_config(use_nvit=False))):
+        m, b = cfg.model, cfg.training.batch_size
+        data = make_synthetic(num_examples=b, image_size=m.image_size,
+                              num_classes=m.num_classes, seed=0)
+        images = normalize(torch.from_numpy(data.images).cuda())
+        labels = torch.from_numpy(data.labels).cuda().long()
+        state = create_train_state(cfg, seed=0, device="cuda")
+        step = make_train_step(cfg, log_norms=False)
+        for _ in range(2):
+            step(state, images, labels)
+        report(f"{mode} training step, batch {b} (kernel path)",
+               *profile(lambda: step(state, images, labels), STEPS))
 
-    dt = compute_dtype_of(cfg)
-    model = state.model.eval()
+        dt = compute_dtype_of(cfg)
+        model = state.model.eval()
 
-    def forward():
-        with torch.inference_mode():
-            model(images, compute_dtype=dt)
+        def forward():
+            with torch.inference_mode():
+                model(images, compute_dtype=dt)
 
-    forward()
-    report(f"serving forward, batch {b} (kernel path)", *profile(forward, STEPS))
+        forward()
+        report(f"{mode} serving forward, batch {b} (kernel path)", *profile(forward, STEPS))
+        del state, model
+        torch.cuda.empty_cache()
     return 0
 
 

@@ -3,8 +3,10 @@
 * ``sdpa`` / ``qknorm_project`` are the plain path — the twins of the JAX
   package's XLA functions, taken when ``flash_attn`` is off;
 * ``attention_qknorm(..., use_flash=True)`` is the fused QK-norm kernel K1
-  with its backward K2 (ops/flash_attention.py): launched on CUDA tensors,
-  their plain twins on CPU tensors.
+  with its backward K2, and ``attention(..., use_flash=True)`` the plain
+  flash kernel K7 with its backward K8 (K9 past T = 1024)
+  (ops/flash_attention.py): launched on CUDA tensors, their plain twins on
+  CPU tensors.
 
 The plain path is written out, not handed to PyTorch's fused attention
 operator, so it keeps the JAX package's rounding points.
@@ -15,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from nvit_tpu_torch.core.norms import justnorm
-from nvit_tpu_torch.ops.flash_attention import flash_attention_qknorm
+from nvit_tpu_torch.ops.flash_attention import flash_attention, flash_attention_qknorm
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
@@ -24,6 +26,16 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> tor
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     probs = torch.softmax(logits, dim=-1)
     return torch.matmul(probs.to(v.dtype).float(), v.float()).to(v.dtype)
+
+
+def attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, *, use_flash: bool = False
+) -> torch.Tensor:
+    """Non-causal multi-head attention with a custom softmax scale, baseline
+    mode (≙ attention.py:attention).  q, k, v: [B, H, T, D]."""
+    if use_flash:
+        return flash_attention(q, k, v, scale)
+    return sdpa(q, k, v, scale)
 
 
 def qknorm_project(

@@ -13,8 +13,7 @@ Not ported yet, and refused at construction with ``NotImplementedError``
 naming the ROADMAP.md item, never skipped silently: checkpoint save and
 resume and ``eval_only``; wandb; AutoAugment and datasets other than
 ``synthetic``; ``remat`` and bf16 moments; more than one device; gradient
-histograms, profiling and the NaN sanitizer; Kohonen and baseline mode
-(``ViT`` raises).  The JAX trainer also writes ``checkpoint_best`` on every
+histograms, profiling and the NaN sanitizer; Kohonen (``ViT`` raises).  The JAX trainer also writes ``checkpoint_best`` on every
 improvement and ``checkpoint_latest`` at exit whatever the config says;
 this one logs a warning that it does not.  ``jit``, ``compile``,
 ``compilation_cache_dir``, ``clear_cache``, ``backend`` and ``device`` are

@@ -187,9 +187,12 @@ def test_state_dict_from_jax_matches_torch_interop(bias):
 
 
 def test_unported_modes_raise():
-    for kw, what in ((dict(use_kohonen=True), "Kohonen"), (dict(use_nvit=False), "baseline")):
-        with pytest.raises(NotImplementedError, match=what):
-            ViT(port_config(small_vit_cfg(**kw)), device="cpu")
+    """Kohonen is refused; baseline mode (use_nvit=False) is ported and builds
+    with its own parameters (tests/test_torch_baseline.py holds it against JAX)."""
+    with pytest.raises(NotImplementedError, match="Kohonen"):
+        ViT(port_config(small_vit_cfg(use_kohonen=True)), device="cpu")
+    names = set(ViT(port_config(small_vit_cfg(use_nvit=False)), device="cpu").state_dict())
+    assert "transformer.h.0.rmsnorm_att.weight" in names and "sz" not in names
 
 
 # ------------------------------------------------------------ training slice

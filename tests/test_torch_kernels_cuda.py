@@ -1,5 +1,6 @@
-"""Card-only tests: the port's CUDA kernels (K1–K4) against their plain twins,
-the autograd Functions' gradients, and one flagship-width Block's backward.
+"""Card-only tests: the port's CUDA kernels (K1–K4, K7–K9) against their plain
+twins, the autograd Functions' gradients, and one flagship-width Block's
+backward in each mode.
 
 Marked ``cuda`` and skipped where there is no CUDA device or no ``nvcc``.
 This file imports no jax, so it also runs on a machine with the card but
@@ -219,6 +220,155 @@ def test_flagship_block_backward_matches_plain_path(cuda):
     h = torch.randn(2, cfg.n_patches, cfg.n_embd, generator=torch.Generator().manual_seed(1))
     h = torch.nn.functional.normalize(h, dim=-1).to(cuda, torch.bfloat16)
     dy = torch.randn(h.shape, generator=torch.Generator().manual_seed(2)).to(cuda, torch.bfloat16)
+    hs = []
+    for blk in blocks:
+        hs.append(h.clone().requires_grad_())
+        blk(hs[-1], compute_dtype=torch.bfloat16).backward(dy)
+    assert rel_l2(hs[0].grad, hs[1].grad) <= 5e-2
+    for (name, p), q in zip(blocks[0].named_parameters(), blocks[1].parameters()):
+        if name == "skip_param":  # the ViT's outer norm_skip uses it, not Block.forward
+            assert p.grad is None and q.grad is None
+            continue
+        assert p.grad is not None and rel_l2(p.grad, q.grad) <= 5e-2, name
+
+
+# ------------------------------------------------------------ baseline mode
+BASE_SHAPES = [
+    (1, 2, 64, 32, False),   # one exact tile
+    (2, 3, 100, 32, False),  # ragged T, head dim 32 (scale 1/sqrt(32) is not bf16-exact)
+    (1, 2, 130, 64, True),   # ragged T, strided QKV views
+    (4, 12, 784, 64, True),  # the flagship's T and head dim
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,t,d,view", BASE_SHAPES)
+def test_k7_matches_twin(cuda, b, h, t, d, view):
+    from nvit_tpu_torch.ops.flash_attention import flash_attention_fwd, flash_attention_ref
+
+    q, k, v, _ = attn_inputs(b, h, t, d, cuda, seed=t + 2, qkv_view=view)
+    scale = 1.0 / float(d) ** 0.5
+    o, lse = flash_attention_fwd(q, k, v, scale, with_lse=True)
+    o_ref, lse_ref = flash_attention_ref(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert o.shape == q.shape and o.dtype == torch.bfloat16
+    torch.testing.assert_close(o.float(), o_ref.float(), **BF16_TOL)
+    # fp32 scores of the same bf16 operands: summation order only
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_k7_rejects_what_it_does_not_take(cuda):
+    from nvit_tpu_torch.ops.flash_attention import flash_attention_fwd
+
+    q, k, v, _ = attn_inputs(1, 2, 16, 48, cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_fwd(q, k, v, 1.0)
+    q, k, v, _ = attn_inputs(1, 2, 16, 32, cuda)
+    with pytest.raises(ValueError, match="bf16"):
+        flash_attention_fwd(q.float(), k.float(), v.float(), 1.0)
+
+
+def base_bwd_inputs(b, h, t, d, device, view, seed):
+    q, k, v, _ = attn_inputs(b, h, t, d, device, seed=seed, qkv_view=view)
+    do = torch.randn(b, t, h, d, generator=torch.Generator().manual_seed(seed + 1))
+    return q, k, v, do.to(device, torch.bfloat16).permute(0, 2, 1, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,t,d,view", BASE_SHAPES)
+def test_k8_matches_twin(cuda, b, h, t, d, view):
+    from nvit_tpu_torch.ops.flash_attention import (
+        attention_bwd_fused,
+        attention_bwd_fused_ref,
+        flash_attention_fwd,
+    )
+
+    q, k, v, do = base_bwd_inputs(b, h, t, d, cuda, view, seed=t + 3)
+    scale = 1.0 / float(d) ** 0.5
+    o, lse = flash_attention_fwd(q, k, v, scale, with_lse=True)
+    got = attention_bwd_fused(q, k, v, o, lse, do, scale)
+    want = attention_bwd_fused_ref(q, k, v, o, lse, do, scale)
+    torch.cuda.synchronize()
+    for a, r in zip(got, want):
+        assert a.shape == q.shape and a.dtype == torch.bfloat16
+        torch.testing.assert_close(a.float(), r.float(), **BF16_TOL)
+    # dq, dk, dv are adjacent views of one [B, T, 3, H, D] buffer
+    assert got[1].data_ptr() - got[0].data_ptr() == h * d * 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,t,d,view", [
+    (2, 3, 100, 32, False),   # the split passes at a small ragged T
+    (1, 4, 1100, 32, True),   # past FUSED_BWD_MAX_T, head dim 32, ragged
+    (2, 12, 1100, 64, True),  # past FUSED_BWD_MAX_T at the flagship's heads
+])
+def test_k9_matches_twins(cuda, b, h, t, d, view):
+    from nvit_tpu_torch.ops.flash_attention import (
+        attention_bwd_split,
+        attention_delta,
+        attention_dkv_ref,
+        attention_dq_ref,
+        flash_attention_fwd,
+    )
+
+    q, k, v, do = base_bwd_inputs(b, h, t, d, cuda, view, seed=t + 4)
+    scale = 1.0 / float(d) ** 0.5
+    o, lse = flash_attention_fwd(q, k, v, scale, with_lse=True)
+    delta = attention_delta(o, do)
+    got = attention_bwd_split(q, k, v, do, lse, delta, scale)
+    want = (attention_dq_ref(q, k, v, do, lse, delta, scale),
+            *attention_dkv_ref(q, k, v, do, lse, delta, scale))
+    torch.cuda.synchronize()
+    for a, r in zip(got, want):
+        assert a.shape == q.shape and a.dtype == torch.bfloat16
+        torch.testing.assert_close(a.float(), r.float(), **BF16_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [130, 1100])  # K8, then K9 past FUSED_BWD_MAX_T
+def test_flash_attn_fn_gradients_on_cuda(cuda, t):
+    """A CUDA forward through K7 yields gradients (K8 or K9) that match
+    autograd through the twins on the same tensors, to 2e-2 relative L2."""
+    from nvit_tpu_torch.ops.flash_attention import (
+        attention_bwd_fused,
+        attention_bwd_split,
+        flash_attention,
+        flash_attention_ref,
+    )
+
+    q, k, v, do = base_bwd_inputs(2, 4, t, 64, cuda, True, seed=9)
+    ours = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    ref = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    fused, split = attention_bwd_fused.launches, attention_bwd_split.launches
+    flash_attention(*ours, 0.125).backward(do)
+    assert (attention_bwd_fused.launches - fused, attention_bwd_split.launches - split) == (
+        (1, 0) if t <= 1024 else (0, 1))
+    flash_attention_ref(*ref, 0.125)[0].backward(do)
+    for a, r in zip(ours, ref):
+        assert a.grad is not None and rel_l2(a.grad, r.grad) <= 2e-2
+
+
+@pytest.mark.cuda
+def test_flagship_baseline_block_backward_matches_plain_path(cuda):
+    """One baseline ViT-B/16 Block (use_nvit=False; d = 768, 12 heads,
+    T = 784) in bf16: the kernel path's (K7/K8, K3/K4) input and parameter
+    gradients against the plain path's on the same weights, within 5e-2
+    relative L2 — the bound chip_smoke.py holds the whole model to."""
+    import dataclasses
+
+    from nvit_tpu_torch.models.blocks import Block
+    from nvit_tpu_torch.models.presets import flagship_config
+
+    cfg = flagship_config(use_nvit=False).model
+    kernel = Block(cfg, device=cuda)
+    kernel.init_weights(torch.Generator(device=cuda).manual_seed(0))
+    plain = Block(dataclasses.replace(cfg, flash_attn=False, gated_mlp_kernel="off"), device=cuda)
+    plain.load_state_dict(kernel.state_dict())
+    blocks = (kernel, plain)
+    h = torch.randn(2, cfg.n_patches, cfg.n_embd, generator=torch.Generator().manual_seed(1))
+    h = h.to(cuda, torch.bfloat16)
+    dy = torch.randn(h.shape, generator=torch.Generator().manual_seed(2)).to(cuda)
     hs = []
     for blk in blocks:
         hs.append(h.clone().requires_grad_())

@@ -292,7 +292,8 @@ def test_package_imports_no_jax():
         "import sys, nvit_tpu_torch, nvit_tpu_torch.serve, nvit_tpu_torch.ckpt.convert, "
         "nvit_tpu_torch.train.trainer, nvit_tpu_torch.train.step, nvit_tpu_torch.train.optim, "
         "nvit_tpu_torch.data.datasets, nvit_tpu_torch.data.pipeline, nvit_tpu_torch.obs.metrics, "
-        "nvit_tpu_torch.models.presets; "
+        "nvit_tpu_torch.models.presets, nvit_tpu_torch.models.blocks, nvit_tpu_torch.ops.attention, "
+        "nvit_tpu_torch.ops.flash_attention; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'nvit_tpu')); "
         "assert not bad, bad"
     )
@@ -308,7 +309,8 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(_build, "_loaded", {})
     assert _build.find_nvcc() is None
-    for name in ("qknorm_attn_fwd", "gated_mlp_fwd", "qknorm_attn_bwd", "gated_mlp_bwd"):
+    for name in ("qknorm_attn_fwd", "gated_mlp_fwd", "qknorm_attn_bwd", "gated_mlp_bwd",
+                 "flash_attn_fwd", "flash_attn_bwd"):
         with pytest.raises(RuntimeError, match="nvcc not found"):
             _build.load_library(name)
     assert not (tmp_path / "build").exists()

@@ -253,7 +253,7 @@ def test_trainer_writes_metrics_and_finishes(tmp_path):
     ("system", dict(model_parallel=2), "multi-GPU"),
     ("system", dict(profile_steps=2), "observability"),
     ("model", dict(use_kohonen=True), "Kohonen"),
-    ("model", dict(use_nvit=False), "baseline"),
+    ("system", dict(debug_nans=True), "observability"),
 ])
 def test_trainer_refuses_unported_settings(tmp_path, section, kw, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -21,8 +21,8 @@ def random_jax_params(cfg, seed: int = 0) -> dict:
 
     The shapes come from ``jax.eval_shape`` (no JAX kernels run, so it costs
     a trace, not dozens of eager compiles); every leaf is drawn from ``seed``
-    so the per-channel scalings (sqk, suv, alphas, sz), biases and position
-    embeddings all take non-constant values."""
+    so the per-channel scalings (sqk, suv, alphas, sz, the baseline's RMSNorm
+    weights), biases and position embeddings all take non-constant values."""
     shapes = jax.eval_shape(lambda k: init_vit(k, cfg), jax.random.PRNGKey(0))
     rng = np.random.default_rng(seed)
 
@@ -32,7 +32,8 @@ def random_jax_params(cfg, seed: int = 0) -> dict:
         noise = rng.standard_normal(s.shape).astype(np.float32)
         if name in ("sqk", "attn_alpha", "mlp_alpha"):
             return (cfg.base_scale * (1 + 0.1 * noise)).astype(np.float32)
-        if name in ("suv", "skip_param", "sz") or (parent == "head_norm" and name == "w"):
+        if name in ("suv", "skip_param", "sz", "rmsnorm_att", "rmsnorm_mlp", "local_norm",
+                    "global_norm") or (parent == "head_norm" and name == "w"):
             return (1 + 0.1 * noise).astype(np.float32)
         if parent.endswith("patch_embed") and name == "w":
             return (noise / np.sqrt(s.shape[0])).astype(np.float32)
