@@ -12,31 +12,46 @@ Phases (any failure raises, and the script exits non-zero with no result):
 2. build    — compiles the six kernel sources from nvit_tpu_torch/csrc/, one
                nvcc per source, all started together;
 3. kernels  — K1/K2 (QK-norm flash attention fwd/bwd), K3/K4 (gated MLP
-               fwd/bwd), K7 (flash attention fwd), K8 and K9 (its fused and
-               split backward, one source) against their plain PyTorch twins
-               at the main paths' shapes and at ragged ones, and the autograd
-               Functions' CUDA gradients against autograd through the twins;
-then for each mode — nViT-B/16 (``use_nvit=True``) and the baseline ViT-B/16
-(``flagship_config(use_nvit=False)``), random weights from a seed:
+               fwd/bwd), K5 (the bounded arm of K1/K2, with the clamp inert
+               and firing in whole rows; "auto" on both sides of its gate),
+               K6 (K3/K4 with a bias), K7 (flash attention fwd), K8 and K9
+               (its fused and split backward, one source) against their plain
+               PyTorch twins at the main paths' shapes and at ragged ones, and
+               the autograd Functions' CUDA gradients against autograd through
+               the twins;
+then for each full path — nViT-B/16 (``use_nvit=True``), the baseline
+ViT-B/16 (``flagship_config(use_nvit=False)``) and path A, nViT-B/16 as
+settings.yaml runs it (``flagship_config(bias=True)``), random weights and
+biases from a seed:
 4. serve    — behind InferenceService + make_handler on a local
                ThreadingHTTPServer: /predict at batches 1, 4 and 32, /healthz,
-               /stats; the mode's attention forward (K1, or K7) and K3 must
-               launch 13 times per forward and no other kernel; served
-               probabilities against the same weights on the plain path
-               (flash_attn=False, gated MLP off);
-5. times    — each of the mode's kernels against its twin, the unfused chain
+               /stats; the path's attention forward (K1, or K7) and gated MLP
+               (K3, or K6 with a bias) must launch 13 times per forward and
+               no other kernel; served probabilities against the same weights
+               on the plain path (flash_attn=False, gated MLP off);
+5. times    — each of the path's kernels against its twin, the unfused chain
                and (attention) PyTorch's fused SDPA, by CUDA events (K9 at
-               T = 1100, where the JAX package takes it); forward latency at
-               batch 1 and 32 and img/s on the kernel and plain paths;
+               T = 1100, where the JAX package takes it; path A times K5 and
+               K6); forward latency at batch 1 and 32 and img/s on the kernel
+               and plain paths;
 6. train    — training at batch 32, bf16: one make_train_step step launches
-               the mode's four kernels (K1–K4, or K7, K8, K3, K4) 13 times
-               each and no other; loss and per-group gradients against the
-               plain path on the same weights and batch; ten steps on one
-               batch lower the loss; step time, img/s, MFU and peak memory on
-               both paths; Trainer.train() on synthetic 224 px data (made once
-               and reused by the second mode) writes metrics.jsonl.
+               the path's four kernels (K1–K4, K7/K8/K3/K4, or K1/K2/K6) 13
+               times each and no other; loss and per-group gradients (biases
+               and suv included) against the plain path on the same weights
+               and batch; ten steps on one batch lower the loss; step time,
+               img/s, MFU and peak memory on both paths; Trainer.train() on
+               synthetic 224 px data (made once and reused by every path)
+               writes metrics.jsonl;
+then, at full width with bias=True, the baseline ViT-B/16, path B (nViT-B/16
+with ``bounded_softmax="bounded"``) and "auto" below its gate (sqk_eff = 1,
+bound 8) and above it (sqk × 2, bound 32):
+7. check    — one batch-32 forward through Predictor and one training step,
+               each launching the path's kernels 13 times and no other;
+               logits, loss and per-group gradients against the plain path;
+               in "auto", the logits bit-equal to the static arm the gate
+               picks and unequal to the other arm's.
 
-K9 is not on either main path (T = 784 ≤ 1024 takes K8), so its launch count
+K9 is not on any main path (T = 784 ≤ 1024 takes K8), so its launch count
 in the summary is 0; the kernels phase checks it and the times phase times it.
 The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -95,15 +110,31 @@ KERNELS = {  # summary name → (source, TPU kernel it replaces)
     "flash_attn_fwd": ("nvit_tpu_torch/csrc/flash_attn_fwd.cu", "nvit_tpu/ops/flash_attention.py:83"),
     "flash_attn_bwd_fused": ("nvit_tpu_torch/csrc/flash_attn_bwd.cu", "nvit_tpu/ops/flash_attention.py:214"),
     "flash_attn_bwd_split": ("nvit_tpu_torch/csrc/flash_attn_bwd.cu", "nvit_tpu/ops/flash_attention.py:154"),
+    "qknorm_attn_fwd_bounded": ("nvit_tpu_torch/csrc/qknorm_attn_fwd.cu", "nvit_tpu/ops/flash_attention.py:429"),
+    "qknorm_attn_bwd_bounded": ("nvit_tpu_torch/csrc/qknorm_attn_bwd.cu", "nvit_tpu/ops/flash_attention.py:602"),
+    "gated_mlp_fwd_bias": ("nvit_tpu_torch/csrc/gated_mlp_fwd.cu", "nvit_tpu/ops/gated_mlp.py:96"),
+    "gated_mlp_bwd_bias": ("nvit_tpu_torch/csrc/gated_mlp_bwd.cu", "nvit_tpu/ops/gated_mlp.py:104"),
 }
 SOURCES = sorted({Path(src).stem for src, _ in KERNELS.values()})
-# the kernels each mode's serving forward and training step launch, 13 times
-# each (12 blocks + the shared cross-attention); every other kernel never
-MODE_KERNELS = {
+# the kernels each path's serving forward and training step launch, 13 times
+# each (12 blocks + the shared cross-attention); every other kernel never.
+# "qknorm_attn_fwd_auto" counts the "auto" launches, whose arm the card picks
+PATHS = {
     "nvit": {"forward": ("qknorm_attn_fwd", "gated_mlp_fwd"),
              "step": ("qknorm_attn_fwd", "qknorm_attn_bwd", "gated_mlp_fwd", "gated_mlp_bwd")},
     "baseline": {"forward": ("flash_attn_fwd", "gated_mlp_fwd"),
                  "step": ("flash_attn_fwd", "flash_attn_bwd_fused", "gated_mlp_fwd", "gated_mlp_bwd")},
+    "nvit-bias": {"forward": ("qknorm_attn_fwd", "gated_mlp_fwd_bias"),
+                  "step": ("qknorm_attn_fwd", "qknorm_attn_bwd", "gated_mlp_fwd_bias", "gated_mlp_bwd_bias")},
+    "baseline-bias": {"forward": ("flash_attn_fwd", "gated_mlp_fwd_bias"),
+                      "step": ("flash_attn_fwd", "flash_attn_bwd_fused", "gated_mlp_fwd_bias",
+                               "gated_mlp_bwd_bias")},
+    "bounded": {"forward": ("qknorm_attn_fwd_bounded", "gated_mlp_fwd_bias"),
+                "step": ("qknorm_attn_fwd_bounded", "qknorm_attn_bwd_bounded", "gated_mlp_fwd_bias",
+                         "gated_mlp_bwd_bias")},
+    # "auto"'s backward is K2's plain recompute (≙ _bwd_qknorm)
+    "auto": {"forward": ("qknorm_attn_fwd_auto", "gated_mlp_fwd_bias"),
+             "step": ("qknorm_attn_fwd_auto", "qknorm_attn_bwd", "gated_mlp_fwd_bias", "gated_mlp_bwd_bias")},
 }
 
 
@@ -166,13 +197,21 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
 
 
 def launch_counts() -> dict:
+    """counter name → (wrapper, attribute holding its launch count)"""
     from nvit_tpu_torch.ops import flash_attention as fa
     from nvit_tpu_torch.ops.gated_mlp import gated_mlp_bwd_duv, gated_mlp_fwd
 
-    return {"qknorm_attn_fwd": fa.qknorm_attention_fwd, "qknorm_attn_bwd": fa.qknorm_attention_bwd,
-            "gated_mlp_fwd": gated_mlp_fwd, "gated_mlp_bwd": gated_mlp_bwd_duv,
-            "flash_attn_fwd": fa.flash_attention_fwd, "flash_attn_bwd_fused": fa.attention_bwd_fused,
-            "flash_attn_bwd_split": fa.attention_bwd_split}
+    return {"qknorm_attn_fwd": (fa.qknorm_attention_fwd, "launches"),
+            "qknorm_attn_fwd_bounded": (fa.qknorm_attention_fwd, "launches_bounded"),
+            "qknorm_attn_fwd_auto": (fa.qknorm_attention_fwd, "launches_auto"),
+            "qknorm_attn_bwd": (fa.qknorm_attention_bwd, "launches"),
+            "qknorm_attn_bwd_bounded": (fa.qknorm_attention_bwd, "launches_bounded"),
+            "gated_mlp_fwd": (gated_mlp_fwd, "launches"), "gated_mlp_fwd_bias": (gated_mlp_fwd, "launches_bias"),
+            "gated_mlp_bwd": (gated_mlp_bwd_duv, "launches"),
+            "gated_mlp_bwd_bias": (gated_mlp_bwd_duv, "launches_bias"),
+            "flash_attn_fwd": (fa.flash_attention_fwd, "launches"),
+            "flash_attn_bwd_fused": (fa.attention_bwd_fused, "launches"),
+            "flash_attn_bwd_split": (fa.attention_bwd_split, "launches")}
 
 
 def check_launches(launches: dict, expected: dict, what: str) -> None:
@@ -183,12 +222,12 @@ def check_launches(launches: dict, expected: dict, what: str) -> None:
 
 
 def reset_counts() -> None:
-    for fn in launch_counts().values():
-        fn.launches = 0
+    for fn, attr in launch_counts().values():
+        setattr(fn, attr, 0)
 
 
 def read_counts() -> dict:
-    return {name: fn.launches for name, fn in launch_counts().items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in launch_counts().items()}
 
 
 # -------------------------------------------------------------------- phases
@@ -341,6 +380,7 @@ def kernel_phase() -> dict:
     check(x.grad is not None and w.grad is not None, "GatedMLPFn: a CUDA forward lost its gradient")
     check(max(rel) <= GRAD_REL_L2, f"GatedMLPFn gradients disagree with the twin's: {rel}")
     baseline_kernel_checks(errs)
+    bias_bounded_kernel_checks(errs)
     return errs
 
 
@@ -398,6 +438,129 @@ def baseline_kernel_checks(errs: dict) -> None:
         check(max(rel) <= GRAD_REL_L2, f"FlashAttnFn gradients disagree with the twin's: {rel}")
 
 
+def bias_inputs(h, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return (0.5 * torch.randn(2 * h, generator=g, device="cuda")).to(torch.bfloat16)
+
+
+def fully_clamped_rows(lse, sqk, scale) -> float:
+    """Share of rows whose every exp argument the −60 floor clamps: there
+    lse = bound − 60 + log T exactly (uniform attention)."""
+    from nvit_tpu_torch.ops.flash_attention import BOUNDED_EXP_FLOOR, head_bounds
+
+    floor = head_bounds(sqk, scale).reshape(1, -1, 1) + BOUNDED_EXP_FLOOR + math.log(lse.shape[-1])
+    return (lse <= floor + 1e-3).float().mean().item()
+
+
+def bias_bounded_kernel_checks(errs: dict) -> None:
+    """K5 (mode="bounded") and K6 against their twins at the batch-32 shapes
+    and a ragged one; K5 with the clamp inert (sqk_eff ≈ 1) and firing in
+    whole rows (sqk_eff ≈ 3); "auto" bit-equal to the arm of its gate; the
+    autograd Functions' CUDA gradients in both."""
+    from nvit_tpu_torch.ops import flash_attention as fa
+    from nvit_tpu_torch.ops.gated_mlp import (
+        gated_mlp,
+        gated_mlp_bwd_duv,
+        gated_mlp_duv_ref,
+        gated_mlp_fwd,
+        gated_mlp_ref,
+    )
+
+    for (b, h, t, d), factor in ((shape, f) for shape in ((32, 12, 784, 64), (2, 4, 100, 32))
+                                 for f in (1.0, 3.0)):
+        q, k, v, sqk, do = qkv_view_inputs(b, h, t, d, seed=t + 9)
+        sqk = factor * sqk
+        scale = float(d) ** 0.5
+        o, lse = fa.qknorm_attention_fwd(q, k, v, sqk, scale, with_lse=True, mode="bounded")
+        got = fa.qknorm_attention_bwd(q, k, v, sqk, scale, o, lse, do, "bounded")
+        o_ref, lse_ref = fa.flash_attention_qknorm_ref(q, k, v, sqk, scale, "bounded")
+        want = fa.qknorm_attention_bwd_ref(q, k, v, sqk, scale, o, lse, do, "bounded")
+        torch.cuda.synchronize()
+        clamped = fully_clamped_rows(lse_ref, sqk, scale)
+        eo, el = max_err(o, o_ref), max_err(lse, lse_ref)
+        e = [max_err(a, r) for a, r in zip(got, want)]
+        dsqk_bound = DSQK_RTOL * want[3].abs().max().item()
+        print(f"K5 [B={b}, H={h}, T={t}, D={d}] sqk_eff x{factor:g} (max bound "
+              f"{fa.head_bounds(sqk, scale).max().item():.1f}, {100 * clamped:.1f}% of rows clamped whole): "
+              f"max|o-o_ref| {eo:.3e}, max|lse-lse_ref| {el:.3e}; backward max|Δ| dq {e[0]:.3e} "
+              f"dk {e[1]:.3e} dv {e[2]:.3e}, dsqk {e[3]:.3e} (bound {dsqk_bound:.3e})")
+        check(all(torch.isfinite(x).all().item() for x in (o, lse, *got)), "K5: non-finite output")
+        if (b, factor) == (32, 1.0):
+            check(clamped == 0.0, "K5: the clamp fired where it should be inert")
+        if (b, factor) == (32, 3.0):
+            check(clamped > 0.5, f"K5: the clamp floored only {clamped:.3f} of the rows whole")
+        torch.testing.assert_close(o.float(), o_ref.float(), **KERNEL_TOL)
+        torch.testing.assert_close(lse, lse_ref, **LSE_TOL)
+        for a, r in zip(got[:3], want[:3]):
+            torch.testing.assert_close(a.float(), r.float(), **KERNEL_TOL)
+        check(e[3] <= dsqk_bound, f"K5 dsqk max|Δ| {e[3]:.3e} exceeds {dsqk_bound:.3e}")
+        errs["qknorm_attn_fwd_bounded"] = max(errs["qknorm_attn_fwd_bounded"], eo)
+        errs["qknorm_attn_bwd_bounded"] = max(errs["qknorm_attn_bwd_bounded"], *e[:3])
+        del q, k, v, do, o, lse, got, o_ref, lse_ref, want
+
+    # "auto": the card's gate picks the arm (bit-equal output), sqk_eff ≈ 1
+    # gives bound ≈ 8·1.3² < 20 (bounded), × 2 gives > 20 (row-max)
+    q, k, v, sqk, _ = qkv_view_inputs(32, 12, 784, 64, seed=21)
+    for factor, arm, other in ((1.0, "bounded", "rowmax"), (2.0, "rowmax", "bounded")):
+        s = factor * sqk
+        o, lse = fa.qknorm_attention_fwd(q, k, v, s, 8.0, with_lse=True, mode="auto")
+        o_arm, lse_arm = fa.qknorm_attention_fwd(q, k, v, s, 8.0, with_lse=True, mode=arm)
+        _, lse_other = fa.qknorm_attention_fwd(q, k, v, s, 8.0, with_lse=True, mode=other)
+        gate = 8.0 * (s * s).max().item()
+        same, differs = torch.equal(o, o_arm) and torch.equal(lse, lse_arm), not torch.equal(lse, lse_other)
+        print(f"auto, sqk_eff x{factor:g} (scale·max(sqk²) = {gate:.2f}, gate 20): output bit-equal to "
+              f"the {arm} arm's: {same}; lse unequal to the {other} arm's: {differs}")
+        check(same and differs and (gate < fa.BOUND_GATE) == (arm == "bounded"),
+              f"auto did not take the {arm} arm at sqk_eff x{factor:g}")
+    del q, k, v, o, lse, o_arm, lse_arm, lse_other
+
+    for n, k, h, what in ((32 * 784, 768, 3072, "c_fc"), (32 * 784, 768, 768, "proj"),
+                          (784 + 17, 768, 768, "ragged")):
+        x, w = mlp_inputs(n, k, h, seed=n + h + 2)
+        bias = bias_inputs(h, seed=h + 3)
+        g = mlp_grad(n, h, seed=n + h + 4)
+        out, ref = gated_mlp_fwd(x, w, bias), gated_mlp_ref(x, w, bias)
+        duv, duv_ref = gated_mlp_bwd_duv(x, w, g, bias), gated_mlp_duv_ref(x, w, g, bias)
+        torch.cuda.synchronize()
+        e6, e6b = max_err(out, ref), max_err(duv, duv_ref)
+        print(f"K6 {what} [n={n}, K={k}, H={h}]: max|out-ref| {e6:.3e}; backward max|duv-duv_ref| {e6b:.3e}")
+        torch.testing.assert_close(out.float(), ref.float(), **KERNEL_TOL)
+        torch.testing.assert_close(duv.float(), duv_ref.float(), **KERNEL_TOL)
+        errs["gated_mlp_fwd_bias"] = max(errs["gated_mlp_fwd_bias"], e6)
+        errs["gated_mlp_bwd_bias"] = max(errs["gated_mlp_bwd_bias"], e6b)
+        del x, w, g, out, ref, duv, duv_ref
+
+    # the autograd Functions with a bias (folded through suv) and bounded
+    x, w = mlp_inputs(2 * 784, 768, 3072, seed=23)
+    b32 = bias_inputs(3072, seed=24).float() / 5
+    suv = 1 + 0.1 * torch.randn(6144, generator=torch.Generator(device="cuda").manual_seed(25), device="cuda")
+    g = mlp_grad(2 * 784, 3072, seed=26)
+    grads = []
+    for fn in (gated_mlp, gated_mlp_ref):
+        w_, b_, s_ = (t.float().clone().requires_grad_() for t in (w, b32, suv))
+        fn(x, (w_ * s_[:, None]).to(torch.bfloat16), (b_ * s_).to(torch.bfloat16)).backward(g)
+        grads.append((w_.grad, b_.grad, s_.grad))
+    rel = [rel_l2(a, r) for a, r in zip(*grads)]
+    print("GatedMLPFn with a suv-folded bias on CUDA vs autograd through the twin: rel L2 dW {:.3e} "
+          "db {:.3e} dsuv {:.3e}".format(*rel))
+    check(max(rel) <= GRAD_REL_L2, f"GatedMLPFn (K6) gradients disagree with the twin's: {rel}")
+    # against the twins' custom VJP, not autograd through the twin's forward:
+    # where the floor clamps a row whole, the true gradient is 0 and the
+    # TPU kernels' backward deliberately is not (flash_attention.py:461-477)
+    q, k, v, sqk, do = qkv_view_inputs(2, 12, 784, 64, seed=27)
+    for factor in (1.0, 3.0):
+        s = factor * sqk
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v, s)]
+        fa.flash_attention_qknorm(*leaves, 8.0, mode="bounded").backward(do)
+        o_ref, lse_ref = fa.flash_attention_qknorm_ref(q, k, v, s, 8.0, "bounded")
+        *ref, dsqk = fa.qknorm_attention_bwd_ref(q, k, v, s, 8.0, o_ref, lse_ref, do, "bounded")
+        rel = [rel_l2(a.grad, r) for a, r in zip(leaves, (*ref, dsqk.sum(dim=0)))]
+        print("FlashQKNormFn bounded, sqk_eff x{:g}, on CUDA vs the twins' VJP: rel L2 dq {:.3e} "
+              "dk {:.3e} dv {:.3e} dsqk {:.3e}".format(factor, *rel))
+        check(all(torch.isfinite(a.grad).all().item() for a in leaves), "FlashQKNormFn (K5): non-finite gradient")
+        check(max(rel) <= GRAD_REL_L2, f"FlashQKNormFn (K5) gradients disagree with the twin's: {rel}")
+
+
 def post(addr, path, body, content_type):
     conn = http.client.HTTPConnection(*addr, timeout=300)
     conn.request("POST", path, body=body, headers={"Content-Type": content_type})
@@ -418,7 +581,7 @@ def get(addr, path):
     return payload
 
 
-def serve_phase(title, mode, cfg, pred, plain) -> dict:
+def serve_phase(title, path, cfg, pred, plain) -> dict:
     from http.server import ThreadingHTTPServer
 
     from nvit_tpu_torch.data.augment import normalize
@@ -462,7 +625,7 @@ def serve_phase(title, mode, cfg, pred, plain) -> dict:
     check(forwards == 3, f"expected 3 device forwards, /stats counts {forwards}")
     per_forward = 1 + cfg.model.n_layer  # the shared cross-attention + every block
     print(f"launches in the served run: {launches} over {forwards} forwards")
-    check_launches(launches, {name: per_forward * forwards for name in MODE_KERNELS[mode]["forward"]},
+    check_launches(launches, {name: per_forward * forwards for name in PATHS[path]["forward"]},
                    f"serving {title}")
 
     for res, b in ((r1, 1), (r4, 4), (r32, 32)):
@@ -491,11 +654,13 @@ def serve_phase(title, mode, cfg, pred, plain) -> dict:
     return launches
 
 
-def unfused_gate_bwd(x, w, g):
-    """The gated_mlp_kernel="off" chain's work for K4's function: the cuBLAS
-    bf16 GEMM recompute of [u | v], then the gate's backward in bf16 as
-    autograd runs it (mul and SiLU backward) and the cat of du and dv."""
-    u, v = torch.chunk(torch.nn.functional.linear(x, w), 2, dim=-1)
+def unfused_gate_bwd(x, w, g, b=None):
+    """The gated_mlp_kernel="off" chain's work for K4's (K6's) function: the
+    cuBLAS bf16 GEMM recompute of [u | v] (+ b), then the gate's backward in
+    bf16 as autograd runs it (mul and SiLU backward) and the cat of du and
+    dv."""
+    uv = torch.nn.functional.linear(x, w)
+    u, v = torch.chunk(uv if b is None else uv + b, 2, dim=-1)
     sig = torch.sigmoid(v)
     return torch.cat([g * torch.nn.functional.silu(v), (g * u) * (sig * (1 + v * (1 - sig)))], dim=-1)
 
@@ -684,6 +849,85 @@ def baseline_time_phase(cfg, pred, plain) -> dict:
     return times
 
 
+def bias_bounded_time_phase(cfg, pred, plain) -> dict:
+    """K6 (c_fc, proj) and K5 (mode="bounded", sqk_eff ≈ 1) at the batch-32
+    shapes against their twins, the unfused chains and, for K5, PyTorch's
+    fused SDPA on the projected q̂/k̂ (library_ms: a yardstick, used nowhere
+    in the port); then path A's forward latency."""
+    import torch.nn.functional as F
+
+    from nvit_tpu_torch.ops import flash_attention as fa
+    from nvit_tpu_torch.ops.attention import attention_qknorm, qknorm_project
+    from nvit_tpu_torch.ops.gated_mlp import (
+        gated_mlp_bwd_duv,
+        gated_mlp_duv_ref,
+        gated_mlp_fwd,
+        gated_mlp_ref,
+        gated_mlp_xla,
+    )
+
+    phase("times, bias (K6) and bounded (K5) kernels")
+    b = 32
+    d, h = cfg.model.n_embd, cfg.model.n_head
+    t, hd = cfg.model.n_patches, d // h
+    scale = float(hd) ** 0.5
+    times = {}
+    n = b * t
+    for hidden, what in ((4 * d, "c_fc"), (d, "proj")):
+        x, w = mlp_inputs(n, d, hidden, seed=5)
+        bias = bias_inputs(hidden, seed=6)
+        g = mlp_grad(n, hidden, seed=7)
+        k6 = cuda_ms(lambda: gated_mlp_fwd(x, w, bias))
+        k6_plain = cuda_ms(lambda: gated_mlp_ref(x, w, bias))
+        k6_off = cuda_ms(lambda: gated_mlp_xla(x, w, bias))
+        k6b = cuda_ms(lambda: gated_mlp_bwd_duv(x, w, g, bias))
+        k6b_plain = cuda_ms(lambda: gated_mlp_duv_ref(x, w, g, bias))
+        k6b_off = cuda_ms(lambda: unfused_gate_bwd(x, w, g, bias))
+        print(f"K6 {what} [n={n}, K={d}, H={hidden}]: kernel {k6:.4f} ms, plain twin {k6_plain:.4f} ms, "
+              f"unfused bf16 chain {k6_off:.4f} ms")
+        print(f"K6 backward {what} [n={n}, K={d}, H={hidden}]: kernel {k6b:.4f} ms, plain twin "
+              f"{k6b_plain:.4f} ms, unfused chain (cuBLAS recompute + bias + bf16 gate backward) {k6b_off:.4f} ms")
+        if what == "c_fc":  # the bias: 2H more bf16 values in, 2·n·H more fp32 adds
+            flops = 4 * n * d * hidden + 2 * n * hidden
+            times["gated_mlp_fwd_bias"] = dict(ms=k6, plain_ms=k6_plain, library_ms=None, **dict(zip(
+                ("bound_ms", "bound_by"), bound(flops, (n * d + 2 * hidden * d + 2 * hidden + n * hidden) * 2))))
+            times["gated_mlp_bwd_bias"] = dict(ms=k6b, plain_ms=k6b_plain, library_ms=None, **dict(zip(
+                ("bound_ms", "bound_by"),
+                bound(flops, (n * d + 2 * hidden * d + 2 * hidden + 3 * n * hidden) * 2))))
+        del x, w, g, bias
+
+    q, k, v, sqk, do = qkv_view_inputs(b, h, t, hd, seed=8)
+    qh, kh = qknorm_project(q, k, sqk, v.dtype)
+    k5 = cuda_ms(lambda: fa.qknorm_attention_fwd(q, k, v, sqk, scale, mode="bounded"))
+    k5_plain = cuda_ms(lambda: fa.flash_attention_qknorm_ref(q, k, v, sqk, scale, "bounded"))
+    k5_lib = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, v, scale=scale))
+    print(f"K5 [B={b}, H={h}, T={t}, D={hd}] bounded, max bound {fa.head_bounds(sqk, scale).max().item():.2f}: "
+          f"kernel {k5:.4f} ms, plain twin {k5_plain:.4f} ms, SDPA on projected q/k {k5_lib:.4f} ms")
+    times["qknorm_attn_fwd_bounded"] = dict(ms=k5, plain_ms=k5_plain, library_ms=k5_lib, **dict(zip(
+        ("bound_ms", "bound_by"), bound(4 * b * h * t * t * hd, 4 * b * h * t * hd * 2 + h * hd * 4))))
+    o, lse = fa.qknorm_attention_fwd(q, k, v, sqk, scale, with_lse=True, mode="bounded")
+    k5b = cuda_ms(lambda: fa.qknorm_attention_bwd(q, k, v, sqk, scale, o, lse, do, "bounded"))
+    k5b_plain = cuda_ms(lambda: fa.qknorm_attention_bwd_ref(q, k, v, sqk, scale, o, lse, do, "bounded"), iters=5)
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v, sqk)]
+    out = attention_qknorm(*leaves, scale, use_flash=False)
+    k5b_off = cuda_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), iters=5)
+    qh, kh = (x.detach().requires_grad_() for x in (qh, kh))
+    vv = v.detach().clone().requires_grad_()
+    out = F.scaled_dot_product_attention(qh, kh, vv, scale=scale)
+    k5b_lib = cuda_ms(lambda: torch.autograd.grad(out, (qh, kh, vv), do, retain_graph=True))
+    print(f"K5 backward [B={b}, H={h}, T={t}, D={hd}] bounded: kernel {k5b:.4f} ms, plain twin {k5b_plain:.4f} ms "
+          f"(median of 5), flash_attn=False autograd backward {k5b_off:.4f} ms, SDPA backward on projected "
+          f"q/k {k5b_lib:.4f} ms")
+    times["qknorm_attn_bwd_bounded"] = dict(ms=k5b, plain_ms=k5b_plain, library_ms=k5b_lib, **dict(zip(
+        ("bound_ms", "bound_by"),
+        bound(10 * b * h * t * t * hd, 8 * b * h * t * hd * 2 + b * h * t * 4 + h * hd * 4 + b * h * hd * 4))))
+    del q, k, v, sqk, do, qh, kh, vv, out, leaves, o, lse
+    torch.cuda.empty_cache()
+    print_bounds(times)
+    forward_latency(cfg, pred, plain)
+    return times
+
+
 # parameter groups the kernel path's gradients are held against the plain path in
 GRAD_GROUPS = {
     "blocks q/k/v": r"transformer\.h\.\d+\.(query|key|value)\.weight",
@@ -709,6 +953,15 @@ BASELINE_GRAD_GROUPS = {
     "embeds": GRAD_GROUPS["embeds"],
     "head": r"mlp_head\..+",
 }
+# bias=True adds the blocks' biases: c_fc's (K6's db, through the suv fold in
+# nViT) apart from the rest (the cross-attention's, with its gated proj's,
+# are in "cross-attention").  In baseline the key biases' gradient is 0 in
+# exact arithmetic (softmax ignores a shift of a whole row of scores); theirs
+# is rounding and weighs nothing beside the other biases of their group
+BIAS_GROUPS = {
+    "c_fc biases": r"transformer\.h\.\d+\.c_fc\.bias",
+    "q/k/v, c_proj biases": r"transformer\.h\.\d+\.(query|key|value|att_c_proj|mlp_c_proj)\.bias",
+}
 
 
 def sync_step(step, state, images, labels):
@@ -717,40 +970,49 @@ def sync_step(step, state, images, labels):
     return out
 
 
-def train_phase(smi: str, title: str, mode: str, cfg, grad_groups: dict) -> dict:
-    import re
-    import shutil
-    import tempfile
+def randomize_biases(model, seed: int) -> None:
+    """normal(0, 0.02) biases in every block and the cross-attention (the
+    init zeroes them), so the bias kernels' forwards add something."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.startswith(("transformer.", "cross_attention.")) and name.endswith(".bias"):
+                p.normal_(0.0, 0.02, generator=g)
 
-    from nvit_tpu_torch.configs import AugmentationConfig
+
+def batch32(m):
     from nvit_tpu_torch.data.augment import normalize
     from nvit_tpu_torch.data.datasets import make_synthetic
-    from nvit_tpu_torch.models.vit import ViT, estimate_flops_per_iter, num_params
-    from nvit_tpu_torch.train.optim import init_fused_adamw
-    from nvit_tpu_torch.train.state import TrainState, create_train_state
-    from nvit_tpu_torch.train.step import make_loss_fn, make_train_step
-    from nvit_tpu_torch.train.trainer import Trainer
 
-    phase(f"train {title} (flagship_config: batch 32, bf16, fp32 params and moments, no remat)")
-    m = cfg.model
-    check(m.flash_attn and m.use_nvit == (mode == "nvit") and not cfg.system.remat
-          and cfg.training.batch_size == 32, "flagship training config drifted")
-    b = cfg.training.batch_size
-    data = make_synthetic(num_examples=b, image_size=m.image_size, num_classes=m.num_classes, seed=0)
-    images = normalize(torch.from_numpy(data.images).cuda())
-    labels = torch.from_numpy(data.labels).cuda().long()
-    state = create_train_state(cfg, seed=0, device="cuda")
-    plain_cfg = dataclasses.replace(cfg, model=dataclasses.replace(m, flash_attn=False, gated_mlp_kernel="off"))
+    data = make_synthetic(num_examples=32, image_size=m.image_size, num_classes=m.num_classes, seed=0)
+    return data.images, normalize(torch.from_numpy(data.images).cuda()), torch.from_numpy(data.labels).cuda().long()
+
+
+def plain_twin(cfg, model):
+    """(config, model) of the plain path (flash_attn=False, gated MLP off)
+    with ``model``'s weights."""
+    from nvit_tpu_torch.models.vit import ViT
+
+    plain_cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, flash_attn=False,
+                                                                   gated_mlp_kernel="off"))
     plain_model = ViT(plain_cfg.model, device="cuda")
-    plain_model.load_state_dict(state.model.state_dict(), strict=True)
+    plain_model.load_state_dict(model.state_dict(), strict=True)
+    return plain_cfg, plain_model
 
-    # the kernel path's loss and gradients against the plain path's
+
+def compare_gradients(cfg, model, plain_cfg, plain_model, images, labels, grad_groups: dict) -> None:
+    """The kernel path's loss and per-group gradients against the plain
+    path's, same weights and batch; leaves no gradient behind."""
+    import re
+
+    from nvit_tpu_torch.train.step import make_loss_fn
+
     losses, grads = {}, {}
-    for name, model, c in (("kernel", state.model, cfg), ("plain", plain_model, plain_cfg)):
-        loss, _ = make_loss_fn(c)(model, images, labels)
+    for name, mdl, c in (("kernel", model, cfg), ("plain", plain_model, plain_cfg)):
+        loss, _ = make_loss_fn(c)(mdl, images, labels)
         loss.backward()
         losses[name] = loss.item()
-        grads[name] = {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
+        grads[name] = {n: p.grad for n, p in mdl.named_parameters() if p.grad is not None}
     dl = abs(losses["kernel"] - losses["plain"]) / abs(losses["plain"])
     print(f"loss: kernel path {losses['kernel']:.6f}, plain path {losses['plain']:.6f} "
           f"(relative gap {dl:.3e}, bound {TRAIN_LOSS_RTOL})")
@@ -771,18 +1033,48 @@ def train_phase(smi: str, title: str, mode: str, cfg, grad_groups: dict) -> dict
     print("grad skip_param alone: relative L2 {:.3e}".format(rel_l2(
         torch.cat([grads["kernel"][n] for n in skips]), torch.cat([grads["plain"][n] for n in skips]))))
     del grads
-    for model in (state.model, plain_model):
-        model.zero_grad(set_to_none=True)
+    for mdl in (model, plain_model):
+        mdl.zero_grad(set_to_none=True)
 
-    # one make_train_step step launches every kernel once per block and once
-    # for the shared cross-attention
+
+def step_launches(cfg, path, state, images, labels) -> dict:
+    """One make_train_step step launches each of the path's kernels once per
+    block and once for the shared cross-attention, and no other kernel."""
+    from nvit_tpu_torch.train.step import make_train_step
+
     step = make_train_step(cfg)
     reset_counts()
     sync_step(step, state, images, labels)
     launches = read_counts()
-    per_step = 1 + m.n_layer
     print(f"launches in one training step: {launches}")
-    check_launches(launches, {name: per_step for name in MODE_KERNELS[mode]["step"]}, "one training step")
+    check_launches(launches, {name: 1 + cfg.model.n_layer for name in PATHS[path]["step"]}, "one training step")
+    return launches
+
+
+def train_phase(smi: str, title: str, path: str, cfg, grad_groups: dict) -> dict:
+    import shutil
+    import tempfile
+
+    from nvit_tpu_torch.configs import AugmentationConfig
+    from nvit_tpu_torch.models.vit import estimate_flops_per_iter, num_params
+    from nvit_tpu_torch.train.optim import init_fused_adamw
+    from nvit_tpu_torch.train.state import TrainState, create_train_state
+    from nvit_tpu_torch.train.step import make_train_step
+    from nvit_tpu_torch.train.trainer import Trainer
+
+    phase(f"train {title} (flagship_config: batch 32, bf16, fp32 params and moments, no remat)")
+    m = cfg.model
+    check(m.flash_attn and not cfg.system.remat and cfg.training.batch_size == 32,
+          "flagship training config drifted")
+    b = cfg.training.batch_size
+    _, images, labels = batch32(m)
+    state = create_train_state(cfg, seed=0, device="cuda")
+    if m.bias:
+        randomize_biases(state.model, seed=1)
+    plain_cfg, plain_model = plain_twin(cfg, state.model)
+    compare_gradients(cfg, state.model, plain_cfg, plain_model, images, labels, grad_groups)
+    launches = step_launches(cfg, path, state, images, labels)
+    per_step = 1 + m.n_layer
 
     # step time on both paths: plain, kernel, kernel, plain
     plain_state = TrainState(model=plain_model, opt_state=init_fused_adamw(plain_model.named_parameters()),
@@ -865,10 +1157,10 @@ def train_phase(smi: str, title: str, mode: str, cfg, grad_groups: dict) -> dict
           f"the Trainer's peak memory {trainer_peak:.3f} GiB is above one step's {peak['kernel']:.3f} GiB")
     check((out_dir / "finished").read_text() == f"max_iters:{iters}", "no finished sentinel")
     for name, count in trainer_launches.items():  # the evals add forwards, not backwards
-        if name in MODE_KERNELS[mode]["forward"]:
+        if name in PATHS[path]["forward"]:
             check(count >= iters * per_step, f"Trainer: {name} launched {count}")
         else:
-            want = iters * per_step if name in MODE_KERNELS[mode]["step"] else 0
+            want = iters * per_step if name in PATHS[path]["step"] else 0
             check(count == want, f"Trainer: {name} launched {count}, expected {want}")
     shutil.rmtree(out_dir)
     return launches
@@ -891,6 +1183,61 @@ def reuse_synthetic_data() -> None:
     trainer_module.load_dataset = load_once
 
 
+def check_phase(title: str, path: str, cfg, grad_groups: dict, *, sqk_factor: float = 1.0,
+                arm: str | None = None) -> dict:
+    """One batch-32 forward through Predictor and one training step at full
+    width, each launching the path's kernels 13 times and no other; logits,
+    loss and per-group gradients against the plain path on the same weights.
+    ``sqk_factor`` scales every sqk; for "auto", ``arm`` is the arm its gate
+    must pick: the logits bit-equal to that static mode's and unequal to the
+    other's → {"forward": launches, "step": launches}."""
+    from nvit_tpu_torch.infer import Predictor
+    from nvit_tpu_torch.models.vit import ViT
+    from nvit_tpu_torch.train.state import create_train_state
+
+    phase(f"check {title}: one batch-32 forward and one training step against the plain path")
+    m = cfg.model
+    u8, images, labels = batch32(m)
+    state = create_train_state(cfg, seed=0, device="cuda")
+    randomize_biases(state.model, seed=1)
+    with torch.no_grad():
+        for name, p in state.model.named_parameters():
+            if name.endswith(".sqk"):
+                p.mul_(sqk_factor)
+    plain_cfg, plain_model = plain_twin(cfg, state.model)
+    pred = Predictor(state.model, m, device="cuda")
+    reset_counts()
+    probs = pred.predict_probs(u8)
+    forward = read_counts()
+    print(f"launches in one batch-32 forward: {forward}")
+    check_launches(forward, {name: 1 + m.n_layer for name in PATHS[path]["forward"]}, f"forward, {title}")
+    check(probs.shape == (len(u8), m.num_classes) and np.isfinite(probs).all(), "bad probabilities")
+    with torch.inference_mode():
+        logits = state.model(images, compute_dtype=torch.bfloat16)
+        logits_p = plain_model(images, compute_dtype=torch.bfloat16)
+    spread, dl = logits_p.std().item(), max_err(logits, logits_p)
+    print(f"kernel vs plain path, batch 32: max|Δlogit| {dl:.3e} (logit std {spread:.3e}, "
+          f"bound {LOGIT_TOL} × std)")
+    check(dl <= LOGIT_TOL * spread, f"{title}: logits disagree with the plain path")
+    if arm is not None:
+        other = "rowmax" if arm == "bounded" else "bounded"
+        static = {}
+        for mode in (arm, other):
+            model = ViT(dataclasses.replace(m, bounded_softmax=mode), device="cuda")
+            model.load_state_dict(state.model.state_dict(), strict=True)
+            with torch.inference_mode():
+                static[mode] = model(images, compute_dtype=torch.bfloat16)
+            del model
+        same, differs = torch.equal(logits, static[arm]), not torch.equal(logits, static[other])
+        print(f"auto: logits bit-equal to bounded_softmax={arm!r}'s: {same}; unequal to {other!r}'s: {differs}")
+        check(same and differs, f"{title}: auto did not take the {arm} arm")
+    state.model.train()
+    compare_gradients(cfg, state.model, plain_cfg, plain_model, images, labels, grad_groups)
+    stepped = step_launches(cfg, path, state, images, labels)
+    del state, plain_model, pred
+    return {"forward": forward, "step": stepped}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device — this smoke test runs only on the card", file=sys.stderr)
@@ -910,30 +1257,56 @@ def main() -> int:
     nvit_cfg = Config(model=ViTConfig(**preset("nvit-b16"), num_classes=1000))
     check(nvit_cfg.model.flash_attn and nvit_cfg.model.bounded_softmax == "rowmax", "flagship config drifted")
     base_cfg = flagship_config(use_nvit=False)
-    modes = (  # (mode, title, serving config, training config, times, gradient groups)
+    path_a = flagship_config(bias=True)  # settings.yaml's model flags, profiles/nvit1_k0.env
+    check(path_a.model.bias and path_a.model.use_nvit and path_a.model.bounded_softmax == "rowmax"
+          and path_a.model.n_embd == 768 and path_a.model.n_layer == 12, "path A's config drifted")
+    bias_groups = {**GRAD_GROUPS, **BIAS_GROUPS}
+    full = (  # (path, title, serving config, training config, times, gradient groups)
         ("nvit", "nViT-B/16", nvit_cfg, flagship_config(), time_phase, GRAD_GROUPS),
         ("baseline", "baseline ViT-B/16", base_cfg, base_cfg, baseline_time_phase, BASELINE_GRAD_GROUPS),
+        ("nvit-bias", "nViT-B/16, bias=True (path A)", path_a, path_a, bias_bounded_time_phase, bias_groups),
     )
     times, launches = {}, {}
-    for mode, title, serve_cfg, train_cfg, time_fn, groups in modes:
+    for path, title, serve_cfg, train_cfg, time_fn, groups in full:
         pred = Predictor.from_config(serve_cfg, seed=0, device="cuda")
+        if serve_cfg.model.bias:
+            randomize_biases(pred.model, seed=2)
         plain_cfg = dataclasses.replace(serve_cfg.model, flash_attn=False, gated_mlp_kernel="off")
         plain_model = ViT(plain_cfg, device="cuda")
         plain_model.load_state_dict(pred.model.state_dict(), strict=True)
         plain = Predictor(plain_model, plain_cfg, device="cuda")
-        served = serve_phase(title, mode, serve_cfg, pred, plain)
+        served = serve_phase(title, path, serve_cfg, pred, plain)
         times.update(time_fn(serve_cfg, pred, plain))
         del pred, plain, plain_model
         gc.collect()
         torch.cuda.empty_cache()
-        stepped = train_phase(smi, title, mode, train_cfg, groups)
+        stepped = train_phase(smi, title, path, train_cfg, groups)
         # launches: the forwards' from the serving path, the backwards' from
-        # one training step (each path driven with every count set to 0 just before)
-        for name in MODE_KERNELS[mode]["step"]:
-            launches[name] = served[name] if name in MODE_KERNELS[mode]["forward"] else stepped[name]
+        # one training step (each path driven with every count set to 0 just
+        # before); a later path's count of a kernel replaces an earlier one's
+        for name in PATHS[path]["step"]:
+            launches[name] = served[name] if name in PATHS[path]["forward"] else stepped[name]
         gc.collect()
         torch.cuda.empty_cache()
     launches["flash_attn_bwd_split"] = stepped["flash_attn_bwd_split"]  # 0: T = 784 takes K8
+
+    checks = (  # (path, title, config, gradient groups, sqk factor, the arm "auto" must take)
+        ("baseline-bias", "baseline ViT-B/16, bias=True", flagship_config(use_nvit=False, bias=True),
+         {**BASELINE_GRAD_GROUPS, **BIAS_GROUPS}, 1.0, None),
+        ("bounded", "nViT-B/16, bias=True, bounded softmax (path B)",
+         flagship_config(bias=True, bounded_softmax="bounded"), bias_groups, 1.0, None),
+        ("auto", "nViT-B/16, bias=True, auto softmax below its gate (sqk_eff = 1, bound 8)",
+         flagship_config(bias=True, bounded_softmax="auto"), bias_groups, 1.0, "bounded"),
+        ("auto", "nViT-B/16, bias=True, auto softmax above its gate (sqk x 2, bound 32)",
+         flagship_config(bias=True, bounded_softmax="auto"), bias_groups, 2.0, "rowmax"),
+    )
+    for path, title, cfg, groups, factor, arm in checks:
+        got = check_phase(title, path, cfg, groups, sqk_factor=factor, arm=arm)
+        if path == "bounded":
+            launches["qknorm_attn_fwd_bounded"] = got["forward"]["qknorm_attn_fwd_bounded"]
+            launches["qknorm_attn_bwd_bounded"] = got["step"]["qknorm_attn_bwd_bounded"]
+        gc.collect()
+        torch.cuda.empty_cache()
 
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,

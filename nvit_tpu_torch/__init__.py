@@ -5,25 +5,28 @@ to find: ``nvit_tpu/models/blocks.py`` ↔ ``nvit_tpu_torch/models/blocks.py``
 and so on.  ``nvit_tpu`` (JAX) stays the reference the port is tested against
 (``tests/test_torch_*.py``); this package imports ``torch`` and never ``jax``.
 
-Slices ported so far, for a non-Kohonen nViT:
+Slices ported so far, for a non-Kohonen nViT and the baseline ViT
+(``use_nvit=False``), with or without biases (``bias: true``, as
+``settings.yaml`` runs it) and with any ``bounded_softmax``:
 
 * serving — ``serve.InferenceService`` → ``infer.Predictor`` →
   ``models.vit.ViT``;
 * training — ``train.trainer.Trainer`` → ``train.step.make_train_step`` →
   the forward, loss and backward → ``train.optim``'s fused AdamW + renorm.
 
-The four Pallas kernels those paths reach are rewritten by hand in CUDA C++
-for sm_90a (``csrc/``), each forward joined to its backward by a
+The Pallas kernels those paths reach are rewritten by hand in CUDA C++ for
+sm_90a (``csrc/``), each forward joined to its backward by a
 ``torch.autograd.Function``:
 
 * ``ops/flash_attention.py`` — QK-norm flash attention forward (K1) and
-  backward (K2), row-max arm;
-* ``ops/gated_mlp.py`` — fused gated-MLP forward (K3) and backward (K4), no
-  bias.
+  backward (K2), their bounded-softmax arm (K5), and the plain flash
+  attention of baseline mode, forward (K7) and backward (K8, K9);
+* ``ops/gated_mlp.py`` — fused gated-MLP forward (K3) and backward (K4),
+  and both with a bias (K6).
 
 Each kernel wrapper runs its plain PyTorch twin on CPU tensors and launches
-the CUDA kernel (or raises) on CUDA tensors.  Checkpoint files, the CLI,
-Kohonen and baseline mode come in later slices (ROADMAP.md).
+the CUDA kernel (or raises) on CUDA tensors.  Checkpoint files, the CLI and
+Kohonen come in later slices (ROADMAP.md).
 """
 
 __version__ = "0.2.0"

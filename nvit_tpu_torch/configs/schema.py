@@ -31,7 +31,7 @@ class ViTConfig:
     use_nvit: bool = False
     flash_attn: bool = False  # selects the fused QK-norm attention kernel
     # softmax stabilizer of the fused QK-norm kernel: "rowmax" (exact per-row
-    # max, the default), "bounded" or "auto" (opt-in; not ported yet)
+    # max, the default, K1/K2), "bounded" or "auto" (opt-in, K5)
     bounded_softmax: str = "rowmax"
     # fused gated-MLP kernel dispatch: "on" | "off" | "auto" (kernel iff
     # n_embd ≤ 768; models/blocks.py)

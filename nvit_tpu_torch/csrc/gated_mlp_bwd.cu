@@ -1,10 +1,12 @@
 // Fused gated MLP, backward — hand-written for Hopper (sm_90a).
 //
-// Replaces the TPU kernel nvit_tpu/ops/gated_mlp.py::_bwd_kernel with
-// has_bias=False, launched by _bwd_duv through _call.  Given the output
-// gradient g, it recomputes u and v and writes their gradients:
+// Replaces the TPU kernel nvit_tpu/ops/gated_mlp.py::_bwd_kernel, launched
+// by _bwd_duv through _call: K4 with has_bias=False (_core_bwd), K6's
+// backward with has_bias=True (_core_bwd_b).  Given the output gradient g, it
+// recomputes u and v and writes their gradients:
 //
-//   [u | v] = x [Wu | Wv]ᵀ (fp32 accumulate)     σ = sigmoid(v)       (fp32)
+//   [u | v] = x [Wu | Wv]ᵀ (+ [bu | bv]) (fp32 accumulate, bias added in fp32)
+//   σ = sigmoid(v)                                                      (fp32)
 //   du = bf16(g·v·σ)      dv = bf16(g·u·σ·(1 + v·(1 − σ)))
 //
 // with x [n, K], W [2H, K] in torch's [out, in] layout (rows 0..H-1 are Wu,
@@ -23,8 +25,11 @@
 // weight rows j and H + j, both operands K-major, x and weight tiles through
 // a 2-stage cp.async ring in 32-wide K steps, four warps (2 × 2) of
 // nvcuda::wmma bf16 16×16×16 fragments over a 64 × 64 tile of u and of v.
-// Only the epilogue differs: it reads the matching g tile, computes σ(v) once
-// in fp32 and writes du and dv, each cast once to bf16.  Ragged n (B·784
+// Only the epilogue differs: it reads the matching g tile (and, for K6, adds
+// the bias to u and v as K3's epilogue does), computes σ(v) once in fp32 and
+// writes du and dv, each cast once to bf16.  K6's db is the fp32 column sum
+// of this [du | dv] buffer, which the JAX package also takes outside the
+// kernel (_core_bwd_b).  Ragged n (B·784
 // against 64-row tiles) is zero-filled on load and masked on store, as is a
 // last K step of 16; K % 16 and H % 64 are required and checked by the
 // wrapper.
@@ -86,9 +91,18 @@ __device__ __forceinline__ void load_stage(Smem& sm, int stage, const bf16* __re
   }
 }
 
+// the bias values of 8 adjacent columns in fp32
+__device__ __forceinline__ void load_bias8(float* dst, const bf16* __restrict__ b) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(b);
+  const bf16* e = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+  for (int c = 0; c < 8; ++c) dst[c] = __bfloat162float(e[c]);
+}
+
 __global__ void __launch_bounds__(NUM_THREADS)
 gated_mlp_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                     const bf16* __restrict__ g, bf16* __restrict__ duv, int n, int K, int H) {
+                     const bf16* __restrict__ bias, const bf16* __restrict__ g,
+                     bf16* __restrict__ duv, int n, int K, int H) {
   __shared__ __align__(128) Smem sm;
   const int m0 = blockIdx.x * BM;
   const int j0 = blockIdx.y * BN;
@@ -156,13 +170,22 @@ gated_mlp_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
         const int col = j0 + wn * 32 + j * 16 + ec;
         const uint4 graw = *reinterpret_cast<const uint4*>(g + (int64_t)row * H + col);
         const bf16* ge = reinterpret_cast<const bf16*>(&graw);
+        float bu[8], bv[8];
+        if (bias != nullptr) {
+          load_bias8(bu, bias + col);
+          load_bias8(bv, bias + H + col);
+        }
         uint4 pu, pv;
         bf16* du = reinterpret_cast<bf16*>(&pu);
         bf16* dv = reinterpret_cast<bf16*>(&pv);
 #pragma unroll
         for (int c = 0; c < 8; ++c) {
-          const float u = eu[er * 16 + ec + c];
-          const float vv = ev[er * 16 + ec + c];
+          float u = eu[er * 16 + ec + c];
+          float vv = ev[er * 16 + ec + c];
+          if (bias != nullptr) {  // ≙ _uv_tiles: u + bu.astype(f32)
+            u += bu[c];
+            vv += bv[c];
+          }
           const float gg = __bfloat162float(ge[c]);
           const float sig = 1.f / (1.f + expf(-vv));
           // ≙ _bwd_kernel: g·v·σ and g·u·σ·(1 + v·(1 − σ)), left to right
@@ -179,15 +202,17 @@ gated_mlp_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
 
 }  // namespace
 
-// x: bf16 [n, K] row-major; w: bf16 [2H, K] row-major; g: bf16 [n, H]
-// row-major; duv: bf16 [n, 2H] (du in columns 0..H-1, dv in H..2H-1).
-// Requires K % 16 == 0, H % 64 == 0 and 16-byte-aligned pointers.
-extern "C" cudaError_t nvit_gated_mlp_bwd(const void* x, const void* w, const void* g, void* duv,
-                                          int n, int K, int H, void* stream) {
+// x: bf16 [n, K] row-major; w: bf16 [2H, K] row-major; bias: bf16 [2H] or
+// null (K4); g: bf16 [n, H] row-major; duv: bf16 [n, 2H] (du in columns
+// 0..H-1, dv in H..2H-1).  Requires K % 16 == 0, H % 64 == 0 and
+// 16-byte-aligned pointers.
+extern "C" cudaError_t nvit_gated_mlp_bwd(const void* x, const void* w, const void* bias,
+                                          const void* g, void* duv, int n, int K, int H,
+                                          void* stream) {
   if (n <= 0 || K <= 0 || K % 16 != 0 || H % BN != 0) return cudaErrorInvalidValue;
   dim3 grid((n + BM - 1) / BM, H / BN);
   gated_mlp_bwd_kernel<<<grid, NUM_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<const bf16*>(g),
-      static_cast<bf16*>(duv), n, K, H);
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<const bf16*>(bias),
+      static_cast<const bf16*>(g), static_cast<bf16*>(duv), n, K, H);
   return cudaGetLastError();
 }

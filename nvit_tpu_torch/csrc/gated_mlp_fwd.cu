@@ -1,13 +1,15 @@
 // Fused gated MLP, forward — hand-written for Hopper (sm_90a).
 //
-// Replaces the TPU kernel nvit_tpu/ops/gated_mlp.py::_fwd_kernel with
-// has_bias=False, launched by _call via _fwd / _gated_core:
+// Replaces the TPU kernel nvit_tpu/ops/gated_mlp.py::_fwd_kernel, launched
+// by _call via _fwd: K3 with has_bias=False (_gated_core), K6 with
+// has_bias=True (_gated_core_b):
 //
-//   out[n, H] = bf16( (x Wuᵀ) ⊙ silu(x Wvᵀ) )     fp32 accumulate, fp32 gate
+//   u = x Wuᵀ (+ bu)   v = x Wvᵀ (+ bv)     fp32 accumulate, the bf16 bias added in fp32
+//   out[n, H] = bf16( u ⊙ silu(v) )         fp32 gate
 //
 // with x [n, K] and W [2H, K] in torch's [out, in] layout (rows 0..H-1 are
 // Wu, rows H..2H-1 are Wv — the suv-folded c_fc weight, or the cross-attention
-// proj weight).  Only the half-width result is written: the [n, 2H] u|v
+// proj weight) and, for K6, b = [bu | bv] [2H] (≙ _uv_tiles).  Only the half-width result is written: the [n, 2H] u|v
 // product never reaches device memory, which is the point of the TPU kernel.
 //
 // What bounds it on the H100: at the flagship c_fc shape (n = B·784, K = 768,
@@ -23,6 +25,9 @@
 // each own 32 × 32 of u and of v as nvcuda::wmma bf16 16×16×16 fragments
 // with fp32 accumulators.  The epilogue stages one fragment pair through a
 // per-warp fp32 scratch, applies u·(v·σ(v)) in fp32 and writes bf16 once.
+// K6 is the same kernel with a non-null bias pointer: the epilogue adds the
+// tile's 2 × 64 bias values (one 16-byte load per 8 columns, from L1/L2) to
+// the fp32 accumulators before the gate, so the bias costs no pass of its own.
 // wgmma/TMA and larger tiles are later work.  Ragged n (B·784 against 64-row
 // tiles) is zero-filled on load and masked on store; so is a last K step of
 // 16 when K % 32 == 16.  K % 16 and H % 64 are required and checked by the
@@ -86,9 +91,17 @@ __device__ __forceinline__ void load_stage(Smem& sm, int stage, const bf16* __re
   }
 }
 
+// the bias values of 8 adjacent columns in fp32
+__device__ __forceinline__ void load_bias8(float* dst, const bf16* __restrict__ b) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(b);
+  const bf16* e = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+  for (int c = 0; c < 8; ++c) dst[c] = __bfloat162float(e[c]);
+}
+
 __global__ void __launch_bounds__(NUM_THREADS)
 gated_mlp_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                     bf16* __restrict__ out, int n, int K, int H) {
+                     const bf16* __restrict__ bias, bf16* __restrict__ out, int n, int K, int H) {
   __shared__ __align__(128) Smem sm;
   const int m0 = blockIdx.x * BM;
   const int j0 = blockIdx.y * BN;
@@ -139,7 +152,7 @@ gated_mlp_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     __syncthreads();  // the stage is refilled by the next iteration's loads
   }
 
-  // epilogue: u · (v · σ(v)) in fp32, one bf16 cast, masked rows
+  // epilogue: (+ bias), u · (v · σ(v)) in fp32, one bf16 cast, masked rows
   float* eu = sm.epi[warp][0];
   float* ev = sm.epi[warp][1];
   const int er = lane >> 1;       // fragment row 0..15
@@ -153,16 +166,25 @@ gated_mlp_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
       __syncwarp();
       const int row = m0 + wm * 32 + i * 16 + er;
       if (row < n) {
+        const int col = j0 + wn * 32 + j * 16 + ec;
+        float bu[8], bv[8];
+        if (bias != nullptr) {
+          load_bias8(bu, bias + col);
+          load_bias8(bv, bias + H + col);
+        }
         uint4 packed;
         bf16* e = reinterpret_cast<bf16*>(&packed);
 #pragma unroll
         for (int c = 0; c < 8; ++c) {
-          const float u = eu[er * 16 + ec + c];
-          const float vv = ev[er * 16 + ec + c];
+          float u = eu[er * 16 + ec + c];
+          float vv = ev[er * 16 + ec + c];
+          if (bias != nullptr) {  // ≙ _uv_tiles: u + bu.astype(f32)
+            u += bu[c];
+            vv += bv[c];
+          }
           const float sig = 1.f / (1.f + expf(-vv));
           e[c] = __float2bfloat16(u * (vv * sig));
         }
-        const int col = j0 + wn * 32 + j * 16 + ec;
         *reinterpret_cast<uint4*>(out + (int64_t)row * H + col) = packed;
       }
       __syncwarp();
@@ -171,13 +193,15 @@ gated_mlp_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
 
 }  // namespace
 
-// x: bf16 [n, K] row-major; w: bf16 [2H, K] row-major; out: bf16 [n, H].
-// Requires K % 16 == 0, H % 64 == 0 and 16-byte-aligned pointers.
-extern "C" cudaError_t nvit_gated_mlp_fwd(const void* x, const void* w, void* out, int n, int K,
-                                          int H, void* stream) {
+// x: bf16 [n, K] row-major; w: bf16 [2H, K] row-major; bias: bf16 [2H] or
+// null (K3); out: bf16 [n, H].  Requires K % 16 == 0, H % 64 == 0 and
+// 16-byte-aligned pointers.
+extern "C" cudaError_t nvit_gated_mlp_fwd(const void* x, const void* w, const void* bias, void* out,
+                                          int n, int K, int H, void* stream) {
   if (n <= 0 || K <= 0 || K % 16 != 0 || H % BN != 0) return cudaErrorInvalidValue;
   dim3 grid((n + BM - 1) / BM, H / BN);
   gated_mlp_fwd_kernel<<<grid, NUM_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<bf16*>(out), n, K, H);
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<const bf16*>(bias),
+      static_cast<bf16*>(out), n, K, H);
   return cudaGetLastError();
 }

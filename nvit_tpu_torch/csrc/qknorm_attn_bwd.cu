@@ -1,12 +1,17 @@
 // QK-norm flash attention, backward — hand-written for Hopper (sm_90a).
 //
 // Replaces the TPU kernel nvit_tpu/ops/flash_attention.py::
-// _bwd_fused_qknorm_kernel (row-max arm), launched by _bwd_qknorm.  Given the
-// forward's o and lse (K1, qknorm_attn_fwd.cu) and dO, per (b, h):
+// _bwd_fused_qknorm_kernel, launched by _bwd_qknorm: K2 is its plain recompute
+// (bounded=False: the "rowmax" and "auto" modes), K5's backward its clamped
+// recompute (bounded=True: the static "bounded" mode only).  Given the
+// forward's o and lse (qknorm_attn_fwd.cu) and dO, per (b, h):
 //
 //   qn = q/max(‖q‖, 1e-30)   kn = k/max(‖k‖, 1e-30)          (fp32)
 //   q̂_s = bf16((s·scale) ⊙ qn)   k̂ = bf16(s ⊙ kn)   k̂_s = bf16((s·scale) ⊙ kn)
 //   S = q̂_s k̂ᵀ   P = exp(S − lse)   Δ = rowsum(dO ∘ O)   dP = dO Vᵀ
+//     (K5: P = exp(max(S − bound, −60) + (bound − lse)), bound = scale·max_d(s_d²),
+//      so P reproduces the forward's clamped softmax; a row the floor clamps
+//      whole keeps the TPU kernel's approximate cotangent: dS is not zeroed)
 //   dS = P ⊙ (dP − Δ)
 //   dV = bf16(P)ᵀ dO    dk̂ = bf16(dS)ᵀ q̂_s    dq̂ = bf16(dS) k̂_s        (fp32)
 //   dq = (s⊙dq̂ − qn·Σ(qn ⊙ s⊙dq̂))/‖q‖,  likewise dk        (justnorm VJP)
@@ -64,6 +69,7 @@ constexpr int NUM_WARPS = 4;
 constexpr int NUM_THREADS = NUM_WARPS * 32;
 constexpr float NORM_EPS = 1e-30f;  // ≙ flash_attention.py _NORM_EPS
 constexpr unsigned FULL = 0xffffffffu;
+constexpr float BOUNDED_EXP_FLOOR = -60.0f;  // ≙ flash_attention.py _BOUNDED_EXP_FLOOR
 
 // (batch, head, token) element strides of the eight [B, H, T, D] operands
 struct Strides {
@@ -184,6 +190,27 @@ __device__ __forceinline__ void justnorm_vjp_row(float* g, const bf16* __restric
   if (t < T) store_half_row_bf16<D>(out, dxn);
 }
 
+// K5's per-head bound scale·max_d(s_d²), the same in every thread of the block
+// and bit-equal to the forward's (a max is exact in any order)
+template <int D>
+__device__ __forceinline__ float head_bound(const float* __restrict__ s_vec, float scale,
+                                            float* red) {
+  float m = 0.f;
+  for (int d = threadIdx.x; d < D; d += NUM_THREADS) m = fmaxf(m, s_vec[d] * s_vec[d]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(FULL, m, off));
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = m;
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < NUM_WARPS; ++w) m = fmaxf(m, red[w]);
+  return scale * m;
+}
+
+// The recomputed softmax entry: exp(s − lse), or K5's clamped form
+__device__ __forceinline__ float recompute_p(float s, float lse, bool bounded, float bound) {
+  return bounded ? expf(fmaxf(s - bound, BOUNDED_EXP_FLOOR) + (bound - lse)) : expf(s - lse);
+}
+
 // Fixed-order column sums of the 64 × D dsqk contributions → one partial row.
 template <int D>
 __device__ __forceinline__ void write_dsqk_partial(const float* contrib, float* __restrict__ dst) {
@@ -235,10 +262,11 @@ qknorm_attn_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
                            const bf16* __restrict__ dO, const float* __restrict__ lse,
                            const float* __restrict__ delta, bf16* __restrict__ dk,
                            bf16* __restrict__ dv, float* __restrict__ dsqk_part, int H, int T,
-                           int n_slots, float scale, Strides st) {
+                           int n_slots, float scale, int bounded, Strides st) {
   using P = Pitch<D>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   SmemKV<D>& sm = *reinterpret_cast<SmemKV<D>*>(smem_raw);
+  __shared__ float red[NUM_WARPS];
 
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
@@ -248,6 +276,7 @@ qknorm_attn_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   const int lr = threadIdx.x >> 1;  // block-wide loads: two threads per tile row
   const int lh = threadIdx.x & 1;
   const float* s_vec = sqk + h * D;
+  const float bound = bounded ? head_bound<D>(s_vec, scale, red) : 0.f;
   const bf16* qb = q + b * st.q[0] + h * st.q[1];
   const bf16* kb = k + b * st.k[0] + h * st.k[1];
   const bf16* vb = v + b * st.v[0] + h * st.v[1];
@@ -312,7 +341,8 @@ qknorm_attn_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
     }
     __syncwarp();
 
-    // Pᵀ = exp(Sᵀ − lse[query]) and dSᵀ = Pᵀ ⊙ (dPᵀ − Δ[query]); P = 0 past T
+    // Pᵀ = exp(Sᵀ − lse[query]) (K5: clamped) and dSᵀ = Pᵀ ⊙ (dPᵀ − Δ[query]);
+    // P = 0 past T
     {
       constexpr int HN = BLOCK / 2;
       const float* srow = sm.s + row * P::S + half * HN;
@@ -322,7 +352,7 @@ qknorm_attn_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
 #pragma unroll 8
       for (int c = 0; c < HN; ++c) {
         const int col = half * HN + c;
-        const float pv = m0 + col < T ? expf(srow[c] - sm.lse[col]) : 0.f;
+        const float pv = m0 + col < T ? recompute_p(srow[c], sm.lse[col], bounded, bound) : 0.f;
         prow[c] = __float2bfloat16(pv);
         dsrow[c] = __float2bfloat16(pv * (dprow[c] - sm.delta[col]));
       }
@@ -388,10 +418,11 @@ qknorm_attn_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
                           const bf16* __restrict__ dO, const float* __restrict__ lse,
                           const float* __restrict__ delta, bf16* __restrict__ dq,
                           float* __restrict__ dsqk_part, int H, int T, int n_slots, int n_tiles,
-                          float scale, Strides st) {
+                          float scale, int bounded, Strides st) {
   using P = Pitch<D>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   SmemQ<D>& sm = *reinterpret_cast<SmemQ<D>*>(smem_raw);
+  __shared__ float red[NUM_WARPS];
 
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
@@ -401,6 +432,7 @@ qknorm_attn_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   const int lr = threadIdx.x >> 1;
   const int lh = threadIdx.x & 1;
   const float* s_vec = sqk + h * D;
+  const float bound = bounded ? head_bound<D>(s_vec, scale, red) : 0.f;
   const bf16* qb = q + b * st.q[0] + h * st.q[1];
   const bf16* kb = k + b * st.k[0] + h * st.k[1];
   const bf16* vb = v + b * st.v[0] + h * st.v[1];
@@ -460,7 +492,8 @@ qknorm_attn_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     }
     __syncwarp();
 
-    // dS = P ⊙ (dP − Δ) with P = exp(S − lse); zero for keys and queries past T
+    // dS = P ⊙ (dP − Δ) with P = exp(S − lse) (K5: clamped); zero for keys and
+    // queries past T
     {
       constexpr int HN = BLOCK / 2;
       const float* srow = sm.s + row * P::S + half * HN;
@@ -469,7 +502,7 @@ qknorm_attn_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 #pragma unroll 8
       for (int c = 0; c < HN; ++c) {
         const bool live = t < T && n0 + half * HN + c < T;
-        const float pv = live ? expf(srow[c] - lse_r) : 0.f;
+        const float pv = live ? recompute_p(srow[c], lse_r, bounded, bound) : 0.f;
         dsrow[c] = __float2bfloat16(pv * (dprow[c] - delta_r));
       }
     }
@@ -509,8 +542,8 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* sqk, const void* o,
                    const void* lse, const void* dO, void* dq, void* dk, void* dv, void* delta,
-                   void* dsqk_part, int B, int H, int T, float scale, const Strides& st,
-                   cudaStream_t stream) {
+                   void* dsqk_part, int B, int H, int T, float scale, int bounded,
+                   const Strides& st, cudaStream_t stream) {
   const int n_tiles = (T + BLOCK - 1) / BLOCK;
   const int n_slots = 2 * n_tiles;
   const dim3 grid(n_tiles, B * H);
@@ -525,7 +558,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* sqk,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const float*>(sqk), static_cast<const bf16*>(dO), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-      static_cast<float*>(dsqk_part), H, T, n_slots, scale, st);
+      static_cast<float*>(dsqk_part), H, T, n_slots, scale, bounded, st);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   const size_t smem_q = sizeof(SmemQ<D>);
@@ -534,7 +567,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* sqk,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const float*>(sqk), static_cast<const bf16*>(dO), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<bf16*>(dq), static_cast<float*>(dsqk_part), H,
-      T, n_slots, n_tiles, scale, st);
+      T, n_slots, n_tiles, scale, bounded, st);
   return cudaGetLastError();
 }
 
@@ -543,14 +576,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* sqk,
 // q, k, v, o, dO: bf16 [B, H, T, D] addressed through (batch, head, token)
 // element strides, head dim contiguous; sqk: fp32 [H, D]; lse: fp32 [B·H, T]
 // from K1.  Outputs dq, dk, dv: bf16, same addressing; delta: fp32 scratch
-// [B·H, T]; dsqk_part: fp32 [B·H, 2·ceil(T/64), D] per-tile partial sums.
+// [B·H, T]; dsqk_part: fp32 [B·H, 2·ceil(T/64), D] per-tile partial sums;
+// bounded: 1 for K5's clamped recompute, 0 for K2's.
 // strides = {q_sb, q_sh, q_st, k_.., v_.., o_.., dO_.., dq_.., dk_.., dv_..}.
 extern "C" cudaError_t nvit_qknorm_attn_bwd(const void* q, const void* k, const void* v,
                                             const void* sqk, const void* o, const void* lse,
                                             const void* dO, void* dq, void* dk, void* dv,
                                             void* delta, void* dsqk_part, int B, int H, int T,
-                                            int D, float scale, const int64_t* strides,
-                                            void* stream) {
+                                            int D, float scale, int bounded,
+                                            const int64_t* strides, void* stream) {
   if (B <= 0 || H <= 0 || T <= 0) return cudaErrorInvalidValue;
   Strides st;
   int64_t* dst[8] = {st.q, st.k, st.v, st.o, st.dO, st.dq, st.dk, st.dv};
@@ -558,8 +592,10 @@ extern "C" cudaError_t nvit_qknorm_attn_bwd(const void* q, const void* k, const 
     for (int j = 0; j < 3; ++j) dst[i][j] = strides[3 * i + j];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64)
-    return launch<64>(q, k, v, sqk, o, lse, dO, dq, dk, dv, delta, dsqk_part, B, H, T, scale, st, s);
+    return launch<64>(q, k, v, sqk, o, lse, dO, dq, dk, dv, delta, dsqk_part, B, H, T, scale,
+                      bounded, st, s);
   if (D == 32)
-    return launch<32>(q, k, v, sqk, o, lse, dO, dq, dk, dv, delta, dsqk_part, B, H, T, scale, st, s);
+    return launch<32>(q, k, v, sqk, o, lse, dO, dq, dk, dv, delta, dsqk_part, B, H, T, scale,
+                      bounded, st, s);
   return cudaErrorInvalidValue;
 }

@@ -1,12 +1,22 @@
 // QK-norm flash attention, forward — hand-written for Hopper (sm_90a).
 //
 // Replaces the TPU kernel nvit_tpu/ops/flash_attention.py::_fwd_qknorm_kernel,
-// row-max arm (bounded=False), launched by _fwd_qknorm_call.  Per (b, h):
+// launched by _fwd_qknorm_call: K1 is its row-max arm (bounded=False), K5 its
+// bounded arm (bounded=True) and _fwd_qknorm's "auto" cond between the two.
+// Per (b, h):
 //
 //   q̂ = bf16((s·scale) ⊙ q/max(‖q‖, 1e-30))      k̂ = bf16(s ⊙ k/max(‖k‖, 1e-30))
-//   S = q̂ k̂ᵀ (fp32)   P = exp(S − rowmax)   O = (bf16(P) V) / Σ P   lse = m + log Σ P
+//   S = q̂ k̂ᵀ (fp32)   P = exp(S − m)   O = (bf16(P) V) / Σ P   lse = m + log Σ P
 //
-// with s = sqk_eff[h] (fp32, [H, D]).  The normalisation is fused: q and k are
+// with s = sqk_eff[h] (fp32, [H, D]) and, by `mode`:
+//   rowmax (K1)  m = the row max of S;
+//   bounded (K5) m = bound = scale·max_d(s_d²), which bounds every score
+//                (Cauchy-Schwarz), and P = exp(max(S − bound, −60)): the
+//                floor keeps Σ P > 0 at any learned-sqk drift;
+//   auto (K5)    bounded for every head when scale·max(sqk_eff²) over ALL
+//                heads is below 20, else rowmax — decided here on the card
+//                from the [H, D] sqk_eff each block reads, so the caller
+//                never waits on the device.  The normalisation is fused: q and k are
 // read once from device memory and projected in fp32 registers, so the
 // projected q̂/k̂ never exist in device memory (the point of the TPU kernel).
 //
@@ -27,9 +37,14 @@
 // −inf and their V rows zero-filled; query rows past T are computed on zeros
 // (the 1e-30 floor keeps them finite) and not stored.
 //
+// K5's bounded arm drops the online softmax's row max and rescale: the bound
+// is a constant known before the first tile (one block-wide max over D, or
+// H·D in auto, of values already in L2), so O accumulates with α = 1.
+//
 // Numerics vs the TPU kernel: the same fp32 projection and multiply order;
 // the online rescale rounds P to bf16 relative to the running max instead of
-// the final row max, a difference of at most one bf16 rounding of P.
+// the final row max, a difference of at most one bf16 rounding of P.  The
+// bounded arm rounds P against the same bound as the TPU kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -47,6 +62,26 @@ constexpr int NUM_WARPS = 4;
 constexpr int NUM_THREADS = NUM_WARPS * 32;
 constexpr float NORM_EPS = 1e-30f;  // ≙ flash_attention.py _NORM_EPS
 constexpr unsigned FULL = 0xffffffffu;
+// softmax stabilizer modes (ops/flash_attention.py MODES)
+constexpr int MODE_ROWMAX = 0;
+constexpr int MODE_BOUNDED = 1;
+constexpr int MODE_AUTO = 2;
+constexpr float BOUND_GATE = 20.0f;          // ≙ flash_attention.py _BOUND_GATE
+constexpr float BOUNDED_EXP_FLOOR = -60.0f;  // ≙ _BOUNDED_EXP_FLOOR
+
+// max_i s[i]² over n fp32 values, the same in every thread of the block
+__device__ __forceinline__ float block_max_sq(const float* __restrict__ s, int n, float* red) {
+  float m = 0.f;
+  for (int i = threadIdx.x; i < n; i += NUM_THREADS) m = fmaxf(m, s[i] * s[i]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(FULL, m, off));
+  __syncthreads();  // red is free: an earlier call's readers are done
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = m;
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < NUM_WARPS; ++w) m = fmaxf(m, red[w]);
+  return m;
+}
 
 template <int D>
 struct Smem {
@@ -133,12 +168,13 @@ __global__ void __launch_bounds__(NUM_THREADS)
 qknorm_attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, const float* __restrict__ sqk,
                        bf16* __restrict__ o, float* __restrict__ lse, int H, int T, float scale,
-                       int64_t q_sb, int64_t q_sh, int64_t q_st, int64_t k_sb, int64_t k_sh,
+                       int mode, int64_t q_sb, int64_t q_sh, int64_t q_st, int64_t k_sb, int64_t k_sh,
                        int64_t k_st, int64_t v_sb, int64_t v_sh, int64_t v_st, int64_t o_sb,
                        int64_t o_sh, int64_t o_st) {
   using S = Smem<D>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   S& sm = *reinterpret_cast<S*>(smem_raw);
+  __shared__ float red[NUM_WARPS];
 
   const int bh = blockIdx.y;
   const int b = bh / H;
@@ -147,6 +183,11 @@ qknorm_attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const float* s_vec = sqk + h * D;  // sqk_eff[h]: no [B·H, D] broadcast needed
+
+  // K5: the stabilizer is a per-head constant, from the RAW s (not s·scale)
+  bool bounded = mode == MODE_BOUNDED;
+  if (mode == MODE_AUTO) bounded = scale * block_max_sq(sqk, H * D, red) < BOUND_GATE;
+  const float bound = bounded ? scale * block_max_sq(s_vec, D, red) : 0.f;
   const bf16* qb = q + b * q_sb + h * q_sh;
   const bf16* kb = k + b * k_sb + h * k_sh;
   const bf16* vb = v + b * v_sb + h * v_sh;
@@ -158,7 +199,7 @@ qknorm_attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int r = lane >> 1;
   const int half = lane & 1;
   const int row = warp * 16 + r;
-  float m_i = -INFINITY;
+  float m_i = bounded ? bound : -INFINITY;
   float l_i = 0.f;
 
   for (int n0 = 0; n0 < T; n0 += BLOCK_N) {
@@ -191,7 +232,21 @@ qknorm_attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncwarp();
 
     // online softmax over this tile; each lane takes half of its row
-    {
+    if (bounded) {  // K5: exp(max(s − bound, −60)) against the constant bound, α = 1
+      constexpr int HN = BLOCK_N / 2;
+      const float* srow = sm.s + row * S::LDS + half * HN;
+      bf16* prow = sm.p + row * S::LDP + half * HN;
+      const int kv0 = n0 + half * HN;
+      float psum = 0.f;
+#pragma unroll
+      for (int c = 0; c < HN; ++c) {
+        // columns past T: zero, as the TPU kernel re-zeroes them after the clamp
+        const float pv = kv0 + c < T ? expf(fmaxf(srow[c] - bound, BOUNDED_EXP_FLOOR)) : 0.f;
+        psum += pv;
+        prow[c] = __float2bfloat16(pv);
+      }
+      l_i += psum + __shfl_xor_sync(FULL, psum, 1);
+    } else {
       constexpr int HN = BLOCK_N / 2;
       const float* srow = sm.s + row * S::LDS + half * HN;
       bf16* prow = sm.p + row * S::LDP + half * HN;
@@ -254,7 +309,8 @@ qknorm_attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* sqk, void* o, void* lse,
-                   int B, int H, int T, float scale, const int64_t* st, cudaStream_t stream) {
+                   int B, int H, int T, float scale, int mode, const int64_t* st,
+                   cudaStream_t stream) {
   const size_t smem = sizeof(Smem<D>);
   cudaError_t err = cudaFuncSetAttribute(qknorm_attn_fwd_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -263,7 +319,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* sqk,
   qknorm_attn_fwd_kernel<D><<<grid, NUM_THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const float*>(sqk), static_cast<bf16*>(o), static_cast<float*>(lse), H, T, scale,
-      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11]);
+      mode, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11]);
   return cudaGetLastError();
 }
 
@@ -271,13 +327,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* sqk,
 
 // q, k, v: bf16 [B, H, T, D] addressed through (batch, head, token) element
 // strides, last dim contiguous; sqk: fp32 [H, D]; o: bf16, same addressing;
-// lse: fp32 [B·H, T] or null.  strides = {q_sb, q_sh, q_st, k_.., v_.., o_..}.
+// lse: fp32 [B·H, T] or null; mode: 0 rowmax (K1), 1 bounded, 2 auto (K5).
+// strides = {q_sb, q_sh, q_st, k_.., v_.., o_..}.
 extern "C" cudaError_t nvit_qknorm_attn_fwd(const void* q, const void* k, const void* v,
                                             const void* sqk, void* o, void* lse, int B, int H,
-                                            int T, int D, float scale, const int64_t* strides,
-                                            void* stream) {
+                                            int T, int D, float scale, int mode,
+                                            const int64_t* strides, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return launch<64>(q, k, v, sqk, o, lse, B, H, T, scale, strides, s);
-  if (D == 32) return launch<32>(q, k, v, sqk, o, lse, B, H, T, scale, strides, s);
+  if (mode < MODE_ROWMAX || mode > MODE_AUTO) return cudaErrorInvalidValue;
+  if (D == 64) return launch<64>(q, k, v, sqk, o, lse, B, H, T, scale, mode, strides, s);
+  if (D == 32) return launch<32>(q, k, v, sqk, o, lse, B, H, T, scale, mode, strides, s);
   return cudaErrorInvalidValue;
 }

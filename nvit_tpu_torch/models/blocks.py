@@ -103,20 +103,13 @@ def gated_linear(
     compute_dtype: torch.dtype | None, use_kernel: bool,
 ) -> torch.Tensor:
     """``u * silu(v)`` over ``x Wᵀ (+ b)`` with linear's casting contract
-    (≙ blocks.py:_gated_linear); w is [2H, K]."""
+    (≙ blocks.py:_gated_linear); w is [2H, K].  With a bias the kernel path
+    is K6, the plain path rounds ``x Wᵀ`` before adding it."""
     if compute_dtype is not None:
         x = x.to(compute_dtype)
         w = w.to(compute_dtype)
         b = b.to(compute_dtype) if b is not None else None
-    if b is not None:
-        if use_kernel:
-            raise NotImplementedError(
-                "the gated-MLP bias kernel (K6) is not ported yet (ROADMAP.md); "
-                "use bias=False or gated_mlp_kernel='off'"
-            )
-        u, v = torch.chunk(torch.nn.functional.linear(x, w, b), 2, dim=-1)
-        return u * torch.nn.functional.silu(v)
-    return gated_mlp(x, w, use_kernel=use_kernel)
+    return gated_mlp(x, w, b, use_kernel=use_kernel)
 
 
 def _scale_vector(d: int, device) -> nn.Parameter:

@@ -3,15 +3,16 @@
 
     python -m nvit_tpu_torch.obs.profile_step
 
-Builds ``flagship_config()`` nViT-B/16, then ``flagship_config(use_nvit=
-False)``, the baseline ViT-B/16, with random weights from a seed; for each
+Builds ``flagship_config()`` nViT-B/16, ``flagship_config(use_nvit=
+False)``, the baseline ViT-B/16, then ``flagship_config(bias=True)``,
+nViT-B/16 as settings.yaml runs it, with random weights from a seed; for each
 it warms up, then profiles ``STEPS`` training steps (kernel path) and as
 many serving forwards, both at ``flagship_config()``'s batch: the shape
 chip_smoke.py measures.  For each it prints the host-clock time
 per step, the device's busy time (the sum of kernel times; the profiler's
 "Command Buffer Full" rows are waits, not work, and are left out) and its
-idle share, the time by group — K1–K4, K7–K9, cuBLAS GEMMs, everything
-else — and the top kernels by device time.  Times come from the card; the script
+idle share, the time by group — K1–K9, cuBLAS GEMMs, everything else —
+and the top kernels by device time.  Times come from the card; the script
 refuses to run without one.  The profiler slows the host side, so the
 step time here is above the untraced one chip_smoke.py reports.
 """
@@ -28,10 +29,10 @@ TOP = 15  # kernels listed by device time
 
 # kernel-name substrings of the port's kernels (csrc/*.cu)
 GROUPS = {
-    "K1 qknorm_attn_fwd": ("qknorm_attn_fwd_kernel",),
-    "K2 qknorm_attn_bwd": ("qknorm_attn_bwd_",),
-    "K3 gated_mlp_fwd": ("gated_mlp_fwd_kernel",),
-    "K4 gated_mlp_bwd": ("gated_mlp_bwd_kernel",),
+    "K1/K5 qknorm_attn_fwd": ("qknorm_attn_fwd_kernel",),
+    "K2/K5 qknorm_attn_bwd": ("qknorm_attn_bwd_",),
+    "K3/K6 gated_mlp_fwd": ("gated_mlp_fwd_kernel",),
+    "K4/K6 gated_mlp_bwd": ("gated_mlp_bwd_kernel",),
     "K7 flash_attn_fwd": ("flash_attn_fwd_kernel",),
     "K8/K9 flash_attn_bwd": ("flash_attn_bwd_",),
     "cuBLAS GEMMs": ("gemm", "cutlass", "xmma", "cublas", "nvjet"),
@@ -99,7 +100,8 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(f"card: {smi}; torch {torch.__version__}")
-    for mode, cfg in (("nViT-B/16", flagship_config()), ("baseline ViT-B/16", flagship_config(use_nvit=False))):
+    for mode, cfg in (("nViT-B/16", flagship_config()), ("baseline ViT-B/16", flagship_config(use_nvit=False)),
+                      ("nViT-B/16, bias=True", flagship_config(bias=True))):
         m, b = cfg.model, cfg.training.batch_size
         data = make_synthetic(num_examples=b, image_size=m.image_size,
                               num_classes=m.num_classes, seed=0)

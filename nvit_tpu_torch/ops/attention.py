@@ -3,7 +3,8 @@
 * ``sdpa`` / ``qknorm_project`` are the plain path — the twins of the JAX
   package's XLA functions, taken when ``flash_attn`` is off;
 * ``attention_qknorm(..., use_flash=True)`` is the fused QK-norm kernel K1
-  with its backward K2, and ``attention(..., use_flash=True)`` the plain
+  with its backward K2 (K5 for ``bounded_softmax`` "bounded" or "auto"),
+  and ``attention(..., use_flash=True)`` the plain
   flash kernel K7 with its backward K8 (K9 past T = 1024)
   (ops/flash_attention.py): launched on CUDA tensors, their plain twins on
   CPU tensors.
@@ -54,13 +55,10 @@ def attention_qknorm(
     *, use_flash: bool = False, bounded_softmax: str = "rowmax",
 ) -> torch.Tensor:
     """nViT attention with the per-head hypersphere projection of Q/K
-    (≙ attention.py:attention_qknorm).  ``sqk_eff``: [H, D] fp32."""
+    (≙ attention.py:attention_qknorm).  ``sqk_eff``: [H, D] fp32;
+    ``bounded_softmax`` is the fused kernel's stabilizer mode ("rowmax",
+    "bounded" or "auto"), which the plain path, exact softmax, ignores."""
     if use_flash:
-        if bounded_softmax != "rowmax":
-            raise NotImplementedError(
-                f"bounded_softmax={bounded_softmax!r}: the bounded arm (K5) is not ported "
-                "yet (ROADMAP.md, TPU kernels still to port)"
-            )
-        return flash_attention_qknorm(q, k, v, sqk_eff, scale)
+        return flash_attention_qknorm(q, k, v, sqk_eff, scale, mode=bounded_softmax)
     qh, kh = qknorm_project(q, k, sqk_eff, v.dtype)
     return sdpa(qh, kh, v, scale)

@@ -3,8 +3,15 @@
 
 nViT mode (QK-norm): K1 replaces nvit_tpu/ops/flash_attention.py::
 _fwd_qknorm_kernel (row-max arm), launched there by ``_fwd_qknorm_call``; K2
-replaces ``_bwd_fused_qknorm_kernel``, launched by ``_bwd_qknorm``.  The
-kernels are ``csrc/qknorm_attn_fwd.cu`` and ``csrc/qknorm_attn_bwd.cu``.
+replaces ``_bwd_fused_qknorm_kernel``, launched by ``_bwd_qknorm``.  K5 is
+their bounded-softmax arm, chosen by ``mode`` (≙ ``_fwd_qknorm``'s):
+"rowmax" (K1, K2), "bounded" (K5 forward and backward) or "auto" (K5's
+forward for every head while scale·max(sqk_eff²) < 20, else K1's — the card
+decides, so the host never waits — and K2 backward, as ``_bwd_qknorm``).
+The kernels are ``csrc/qknorm_attn_fwd.cu`` and ``csrc/qknorm_attn_bwd.cu``;
+K5's launches are counted apart (``.launches_bounded``, ``.launches_auto``).
+Past ``FUSED_BWD_MAX_T`` the JAX package projects q̂/k̂ in fp32 and takes the
+plain flash kernels whatever the mode; so does ``flash_attention_qknorm``.
 
 Baseline mode (plain softmax(q·kᵀ·scale)·v): K7 replaces ``_fwd_kernel``
 (launched by ``_fwd``); K8 replaces ``_bwd_fused_kernel`` and K9 the split
@@ -34,6 +41,10 @@ import torch
 
 NORM_EPS = 1e-30  # ≙ flash_attention.py _NORM_EPS: floors all-zero rows
 BLOCK = 64  # K2's tile rows (csrc/qknorm_attn_bwd.cu)
+# softmax stabilizers of the QK-norm kernels, by their kernel-side number
+MODES = {"rowmax": 0, "bounded": 1, "auto": 2}
+BOUND_GATE = 20.0  # ≙ _BOUND_GATE: "auto" takes the bounded arm below it
+BOUNDED_EXP_FLOOR = -60.0  # ≙ _BOUNDED_EXP_FLOOR: exp arguments clamped at it
 
 
 def _norm32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -48,21 +59,59 @@ def _normed_scaled(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     return s * _norm32(x)[0]
 
 
+def _check_mode(mode: str) -> None:
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {sorted(MODES)}, got {mode!r}")
+
+
+def _count(wrapper, mode: str) -> None:
+    """One launch on the wrapper's counter for ``mode``: ``.launches`` for
+    "rowmax", ``.launches_<mode>`` otherwise."""
+    attr = "launches" if mode == "rowmax" else f"launches_{mode}"
+    setattr(wrapper, attr, getattr(wrapper, attr) + 1)
+
+
+def head_bounds(sqk_eff: torch.Tensor, scale: float) -> torch.Tensor:
+    """K5's per-head stabilizer scale·max_d(s_d²) → [H] fp32, from the raw
+    fp32 sqk_eff (≙ _fwd_qknorm_kernel's ``bound``)."""
+    s = sqk_eff.float()
+    return scale * torch.amax(s * s, dim=-1)
+
+
+def bounded_arm(sqk_eff: torch.Tensor, scale: float, mode: str) -> bool:
+    """Whether the forward takes the bounded arm: always in "bounded"; in
+    "auto" iff scale·max(sqk_eff²) over ALL heads < BOUND_GATE (≙
+    _fwd_qknorm's cond).  Reads the value on the host: the twins' choice,
+    never the kernel path's."""
+    _check_mode(mode)
+    if mode != "auto":
+        return mode == "bounded"
+    return bool(torch.amax(head_bounds(sqk_eff, scale)) < BOUND_GATE)
+
+
 def flash_attention_qknorm_ref(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sqk_eff: torch.Tensor, scale: float
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sqk_eff: torch.Tensor, scale: float,
+    mode: str = "rowmax",
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain twin of K1: → (o [B, H, T, D] in v.dtype, lse [B, H, T] fp32).
+    """Plain twin of K1 (K5 in the bounded arm): → (o [B, H, T, D] in v.dtype,
+    lse [B, H, T] fp32).
 
     The TPU kernel's single pass: fp32 norms with the 1e-30 floor, the softmax
     scale folded into q̂ as (s·scale)·qn before the cast, fp32 scores, row-max
-    softmax, bf16(P)·V accumulated in fp32, divided by the fp32 row sum."""
+    softmax — or, in the bounded arm (``bounded_arm``), exp(max(S − bound,
+    −60)) against the per-head bound — bf16(P)·V accumulated in fp32, divided
+    by the fp32 row sum."""
     h, d = sqk_eff.shape
     s = sqk_eff.float().reshape(1, h, 1, d)
     qhat = _normed_scaled(q, s * scale).to(v.dtype)
     khat = _normed_scaled(k, s).to(v.dtype)
     scores = torch.matmul(qhat.float(), khat.float().transpose(-1, -2))
-    m = torch.amax(scores, dim=-1, keepdim=True)
-    p = torch.exp(scores - m)
+    if bounded_arm(sqk_eff, scale, mode):
+        m = head_bounds(sqk_eff, scale).reshape(1, h, 1, 1)
+        p = torch.exp(torch.clamp_min(scores - m, BOUNDED_EXP_FLOOR))
+    else:
+        m = torch.amax(scores, dim=-1, keepdim=True)
+        p = torch.exp(scores - m)
     l = torch.sum(p, dim=-1, keepdim=True)
     pv = torch.matmul(p.to(v.dtype).float(), v.float())
     o = (pv / l).to(v.dtype)
@@ -72,16 +121,20 @@ def flash_attention_qknorm_ref(
 
 def qknorm_attention_bwd_ref(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sqk_eff: torch.Tensor, scale: float,
-    o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+    o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, mode: str = "rowmax",
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain twin of K2 (≙ _bwd_fused_qknorm_kernel, row-max arm) →
-    (dq, dk, dv in the inputs' dtypes, dsqk [B, H, D] fp32 per (b, h)).
+    """Plain twin of K2 (≙ _bwd_fused_qknorm_kernel; K5's backward with
+    ``mode="bounded"``) → (dq, dk, dv in the inputs' dtypes, dsqk [B, H, D]
+    fp32 per (b, h)).
 
     The TPU kernel body with its rounding points: q̂_s = bf16((s·scale)·qn),
-    k̂ = bf16(s·kn), k̂_s = bf16((s·scale)·kn); P = exp(S − lse); Δ = rowsum
+    k̂ = bf16(s·kn), k̂_s = bf16((s·scale)·kn); P = exp(S − lse) — in
+    "bounded", exp(max(S − bound, −60) + (bound − lse)), and in "auto" the
+    plain form, as ``_bwd_qknorm``; Δ = rowsum
     (dO∘O) in fp32; dS = P·(dP − Δ); bf16(P) and bf16(dS) feed the fp32
     products dV, dk̂, dq̂; dsqk = Σ_t(dq̂⊙qn + dk̂⊙kn); then the justnorm VJP
     divides by the floored norms."""
+    _check_mode(mode)
     h, d = sqk_eff.shape
     s = sqk_eff.float().reshape(1, h, 1, d)
     qn, qnorm = _norm32(q)
@@ -90,7 +143,12 @@ def qknorm_attention_bwd_ref(
     khat = (s * kn).to(v.dtype).float()
     khat_s = ((s * scale) * kn).to(v.dtype).float()
     do32 = do.float()
-    p = torch.exp(torch.matmul(qhat_s, khat.transpose(-1, -2)) - lse.unsqueeze(-1))
+    scores = torch.matmul(qhat_s, khat.transpose(-1, -2))
+    if mode == "bounded":
+        bound = head_bounds(sqk_eff, scale).reshape(1, h, 1, 1)
+        p = torch.exp(torch.clamp_min(scores - bound, BOUNDED_EXP_FLOOR) + (bound - lse.unsqueeze(-1)))
+    else:
+        p = torch.exp(scores - lse.unsqueeze(-1))
     delta = torch.sum(do32 * o.float(), dim=-1, keepdim=True)
     dp = torch.matmul(do32, v.float().transpose(-1, -2))
     ds = (p * (dp - delta)).to(q.dtype).float()
@@ -146,13 +204,16 @@ def _launch_strides(x: torch.Tensor, name: str) -> tuple[int, int, int]:
 
 def qknorm_attention_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sqk_eff: torch.Tensor, scale: float,
-    *, with_lse: bool = False,
+    *, with_lse: bool = False, mode: str = "rowmax",
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """Launch K1 on CUDA tensors → (o [B, H, T, D] bf16, lse [B, H, T] fp32 or
-    None).  o is a [B, H, T, D] view of [B, T, H, D] storage, so merging the
-    heads afterwards costs no copy.  Counts each launch in ``.launches``."""
+    """Launch K1 ("rowmax") or K5 ("bounded", "auto") on CUDA tensors →
+    (o [B, H, T, D] bf16, lse [B, H, T] fp32 or None).  o is a [B, H, T, D]
+    view of [B, T, H, D] storage, so merging the heads afterwards costs no
+    copy.  Counts each launch in ``.launches`` (rowmax),
+    ``.launches_bounded`` or ``.launches_auto`` (whose arm the card picks)."""
     from nvit_tpu_torch.ops._build import load_library
 
+    _check_mode(mode)
     b, h, t, d = _check_operands(q, k, v, sqk_eff)
     _check_cuda_bf16("qknorm_attention_fwd", (q, k, v), d)
     if not sqk_eff.is_cuda:
@@ -167,33 +228,39 @@ def qknorm_attention_fwd(
     lib = load_library("qknorm_attn_fwd")
     fn = lib.nvit_qknorm_attn_fwd
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p,
+        ctypes.c_float, ctypes.c_int, ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), sqk.data_ptr(), o.data_ptr(),
         lse.data_ptr() if lse is not None else None,
-        b, h, t, d, float(scale), strides, torch.cuda.current_stream(q.device).cuda_stream,
+        b, h, t, d, float(scale), MODES[mode], strides,
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"qknorm_attn_fwd launch failed: cudaError {err}")
-    qknorm_attention_fwd.launches += 1
+    _count(qknorm_attention_fwd, mode)
     return o, lse
 
 
 qknorm_attention_fwd.launches = 0
+qknorm_attention_fwd.launches_bounded = 0
+qknorm_attention_fwd.launches_auto = 0
 
 
 def qknorm_attention_bwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sqk_eff: torch.Tensor, scale: float,
-    o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+    o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, mode: str = "rowmax",
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch K2 on CUDA tensors → (dq, dk, dv bf16 [B, H, T, D], dsqk [B, H, D]
-    fp32 per (b, h)).  dq/dk/dv are views of ONE [B, T, 3, H, D] buffer.
-    ``o``/``lse`` are K1's (``with_lse=True``); ``do`` may be any view with a
-    contiguous head dim.  Counts each launch in ``.launches``."""
+    """Launch K2 ("rowmax", "auto") or K5's backward ("bounded") on CUDA
+    tensors → (dq, dk, dv bf16 [B, H, T, D], dsqk [B, H, D] fp32 per (b, h)).
+    dq/dk/dv are views of ONE [B, T, 3, H, D] buffer.  ``o``/``lse`` are the
+    forward's (``with_lse=True``) in the same mode; ``do`` may be any view
+    with a contiguous head dim.  Counts each launch in ``.launches`` (K2) or
+    ``.launches_bounded`` (K5)."""
     from nvit_tpu_torch.ops._build import load_library
 
+    _check_mode(mode)
     b, h, t, d = _check_operands(q, k, v, sqk_eff)
     _check_cuda_bf16("qknorm_attention_bwd", (q, k, v, o, do), d)
     if o.shape != q.shape or do.shape != q.shape or tuple(lse.shape) != (b, h, t):
@@ -218,39 +285,41 @@ def qknorm_attention_bwd(
     lib = load_library("qknorm_attn_bwd")
     fn = lib.nvit_qknorm_attn_bwd
     fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p,
+        ctypes.c_float, ctypes.c_int, ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
+    bounded = mode == "bounded"  # ≙ _bwd_qknorm: "auto" recomputes exp(s − lse)
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), sqk.data_ptr(), o.data_ptr(), lse.data_ptr(),
         do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
-        part.data_ptr(), b, h, t, d, float(scale), strides,
+        part.data_ptr(), b, h, t, d, float(scale), int(bounded), strides,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"qknorm_attn_bwd launch failed: cudaError {err}")
-    qknorm_attention_bwd.launches += 1
+    _count(qknorm_attention_bwd, "bounded" if bounded else "rowmax")
     # the per-tile partials summed in a fixed order: deterministic dsqk
     return dq, dk, dv, part.sum(dim=1).reshape(b, h, d)
 
 
 qknorm_attention_bwd.launches = 0
+qknorm_attention_bwd.launches_bounded = 0
 
 
 class FlashQKNormFn(torch.autograd.Function):
-    """K1 forward, K2 backward (≙ _flash_qknorm_padded's custom VJP); the
-    plain twins on CPU tensors.  Saves q, k, v, o, lse and sqk_eff, as
-    ``_flash_qknorm_padded_fwd`` does.  The gradient of ``sqk_eff [H, D]``
+    """K1 (K5) forward, K2 (K5) backward (≙ _flash_qknorm_padded's custom
+    VJP); the plain twins on CPU tensors.  Saves q, k, v, o, lse and sqk_eff,
+    as ``_flash_qknorm_padded_fwd`` does.  The gradient of ``sqk_eff [H, D]``
     is the per-(b, h) dsqk summed over b — the VJP of the ``s3`` broadcast."""
 
     @staticmethod
-    def forward(ctx, q, k, v, sqk_eff, scale):
+    def forward(ctx, q, k, v, sqk_eff, scale, mode):
         if q.is_cuda:
-            o, lse = qknorm_attention_fwd(q, k, v, sqk_eff, scale, with_lse=True)
+            o, lse = qknorm_attention_fwd(q, k, v, sqk_eff, scale, with_lse=True, mode=mode)
         else:
-            o, lse = flash_attention_qknorm_ref(q, k, v, sqk_eff, scale)
+            o, lse = flash_attention_qknorm_ref(q, k, v, sqk_eff, scale, mode)
         ctx.save_for_backward(q, k, v, sqk_eff, o, lse)
-        ctx.scale = scale
+        ctx.scale, ctx.mode = scale, mode
         return o
 
     @staticmethod
@@ -258,22 +327,32 @@ class FlashQKNormFn(torch.autograd.Function):
         q, k, v, sqk_eff, o, lse = ctx.saved_tensors
         do = do.to(o.dtype)  # ≙ _bwd_qknorm: g.astype(o3.dtype)
         bwd = qknorm_attention_bwd if q.is_cuda else qknorm_attention_bwd_ref
-        dq, dk, dv, dsqk = bwd(q, k, v, sqk_eff, ctx.scale, o, lse, do)
-        return dq, dk, dv, dsqk.sum(dim=0).to(sqk_eff.dtype), None
+        dq, dk, dv, dsqk = bwd(q, k, v, sqk_eff, ctx.scale, o, lse, do, ctx.mode)
+        return dq, dk, dv, dsqk.sum(dim=0).to(sqk_eff.dtype), None, None
 
 
 def flash_attention_qknorm(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sqk_eff: torch.Tensor, scale: float
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sqk_eff: torch.Tensor, scale: float,
+    mode: str = "rowmax",
 ) -> torch.Tensor:
-    """Fused nViT attention (≙ flash_attention.py:flash_attention_qknorm with
-    mode="rowmax") → [B, H, T, D] in v.dtype.  K1/K2 on CUDA tensors, the
-    twins on CPU tensors — chosen by where the tensors lie, nothing else."""
-    _check_operands(q, k, v, sqk_eff)
+    """Fused nViT attention (≙ flash_attention.py:flash_attention_qknorm) →
+    [B, H, T, D] in v.dtype; ``mode`` is the softmax stabilizer (``MODES``).
+    K1/K2 (K5) on CUDA tensors, the twins on CPU tensors — chosen by where
+    the tensors lie, nothing else.  Past ``FUSED_BWD_MAX_T``, as the JAX
+    package, q̂ = s ⊙ q/max(‖q‖, 1e-30) and k̂ are projected in fp32, cast to
+    v's dtype and handed to ``flash_attention`` (K7, then K9 backward) with
+    the same scale, whatever the mode."""
+    _check_mode(mode)
+    b, h, t, d = _check_operands(q, k, v, sqk_eff)
+    if t > FUSED_BWD_MAX_T:  # ≙ flash_attention.py:706-714
+        s = sqk_eff.reshape(1, h, 1, d)
+        return flash_attention(_normed_scaled(q, s).to(v.dtype), _normed_scaled(k, s).to(v.dtype),
+                               v, scale)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v, sqk_eff)):
-        return FlashQKNormFn.apply(q, k, v, sqk_eff, scale)
+        return FlashQKNormFn.apply(q, k, v, sqk_eff, scale, mode)
     if q.is_cuda:
-        return qknorm_attention_fwd(q, k, v, sqk_eff, scale)[0]
-    return flash_attention_qknorm_ref(q, k, v, sqk_eff, scale)[0]
+        return qknorm_attention_fwd(q, k, v, sqk_eff, scale, mode=mode)[0]
+    return flash_attention_qknorm_ref(q, k, v, sqk_eff, scale, mode)[0]
 
 
 # ------------------------------------------------------------ baseline mode

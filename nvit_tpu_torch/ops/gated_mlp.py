@@ -1,23 +1,24 @@
-"""Fused gated MLP: the CUDA kernels K3 (forward) and K4 (backward), their
-plain twins, the ``autograd.Function`` that joins them, and the unfused path
-(≙ nvit_tpu/ops/gated_mlp.py).
+"""Fused gated MLP: the CUDA kernels K3/K6 (forward) and K4/K6 (backward),
+their plain twins, the ``autograd.Function`` that joins them, and the
+unfused path (≙ nvit_tpu/ops/gated_mlp.py).
 
-``u ⊙ silu(v)`` where ``[u | v] = x Wᵀ`` and ``W`` is ``[2H, K]`` in torch's
-``[out, in]`` layout.  K3 replaces the TPU kernel
-nvit_tpu/ops/gated_mlp.py::_fwd_kernel (has_bias=False), launched there by
-``_call`` via ``_fwd``; K4 replaces ``_bwd_kernel`` (has_bias=False),
-launched by ``_bwd_duv``.  The kernels are ``csrc/gated_mlp_fwd.cu`` and
-``csrc/gated_mlp_bwd.cu``.
+``u ⊙ silu(v)`` where ``[u | v] = x Wᵀ (+ b)`` and ``W`` is ``[2H, K]`` in
+torch's ``[out, in]`` layout.  K3 replaces the TPU kernel
+nvit_tpu/ops/gated_mlp.py::_fwd_kernel with has_bias=False, launched there by
+``_call`` via ``_fwd``; K4 replaces ``_bwd_kernel`` (has_bias=False), launched
+by ``_bwd_duv``.  K6 is both with has_bias=True (``_gated_core_b``): the same
+CUDA sources, ``csrc/gated_mlp_fwd.cu`` and ``csrc/gated_mlp_bwd.cu``, given a
+bias pointer, with launch counts of their own (``.launches_bias``).
 
-* ``gated_mlp(..., use_kernel=True)``: CUDA tensors launch K3 and, under
-  autograd, K4 (bf16, K % 16 == 0, H % 64 == 0) or raise; CPU tensors run
-  ``gated_mlp_ref`` / ``gated_mlp_bwd_ref``, the TPU kernels' math in plain
-  PyTorch (fp32 accumulate and gate, one cast).  dx and dW are dense
-  products (cuBLAS on the card), as ``_dw_dx`` leaves them to XLA.
-* ``use_kernel=False`` is the unfused chain ``_xla_gated`` mirrors
-  (matmul in the input dtype, split, gate), chosen by configuration.
-
-The bias variant (K6) is not ported yet.
+* ``gated_mlp(..., use_kernel=True)``: CUDA tensors launch K3 (K6 with a
+  bias) and, under autograd, K4 (K6's backward) — bf16, K % 16 == 0,
+  H % 64 == 0 — or raise; CPU tensors run ``gated_mlp_ref`` /
+  ``gated_mlp_bwd_ref``, the TPU kernels' math in plain PyTorch (fp32
+  accumulate, bias and gate, one cast).  dx and dW are dense products
+  (cuBLAS on the card), as ``_dw_dx`` leaves them to XLA; db is the fp32
+  column sum of [du | dv], as ``_core_bwd_b`` takes it.
+* ``use_kernel=False`` is the unfused chain ``_xla_gated`` (matmul in the
+  input dtype, then the bias, split, gate), chosen by configuration.
 """
 
 from __future__ import annotations
@@ -28,21 +29,30 @@ import torch
 import torch.nn.functional as F
 
 
-def gated_mlp_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Plain twin of K3: fp32 ``u·(v·σ(v))`` over fp32-accumulated ``x Wᵀ``,
+def _uv32(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None) -> torch.Tensor:
+    """fp32 ``[u | v]`` over fp32-accumulated ``x Wᵀ``, the bias added in
+    fp32 (≙ _uv_tiles)."""
+    uv = torch.matmul(x.float(), w.float().t())
+    return uv if b is None else uv + b.float()
+
+
+def gated_mlp_ref(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain twin of K3 (K6 with ``b``): fp32 ``u·(v·σ(v))`` over ``_uv32``,
     cast once to x.dtype."""
     h = w.shape[0] // 2
-    uv = torch.matmul(x.float(), w.float().t())
+    uv = _uv32(x, w, b)
     u, v = uv[..., :h], uv[..., h:]
     return (u * (v * torch.sigmoid(v))).to(x.dtype)
 
 
-def gated_mlp_duv_ref(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """Plain twin of K4 (≙ _bwd_kernel): x [n, K], w [2H, K], g [n, H] →
-    [du | dv] [n, 2H] in x.dtype, from fp32 u, v recomputed over
-    fp32-accumulated ``x Wᵀ`` and the gate's derivatives in fp32."""
+def gated_mlp_duv_ref(
+    x: torch.Tensor, w: torch.Tensor, g: torch.Tensor, b: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Plain twin of K4 (K6's backward with ``b``; ≙ _bwd_kernel): x [n, K],
+    w [2H, K], g [n, H], b [2H] → [du | dv] [n, 2H] in x.dtype, from fp32 u,
+    v recomputed as ``_uv32`` and the gate's derivatives in fp32."""
     h = w.shape[0] // 2
-    uv = torch.matmul(x.float(), w.float().t())
+    uv = _uv32(x, w, b)
     u, v = uv[..., :h], uv[..., h:]
     g32 = g.float()
     sig = torch.sigmoid(v)
@@ -66,18 +76,30 @@ def _dw_dx(x: torch.Tensor, w: torch.Tensor, duv: torch.Tensor) -> tuple[torch.T
     return dx, dw
 
 
+def _bias_grad(duv: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """db [2H] = the fp32 column sum of [du | dv], cast to b's dtype (≙
+    _core_bwd_b's dbu, dbv); no fp32 copy of duv is made."""
+    return torch.sum(duv, dim=0, dtype=torch.float32).to(b.dtype)
+
+
 def gated_mlp_bwd_ref(
-    x: torch.Tensor, w: torch.Tensor, g: torch.Tensor
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain backward of the fused core (≙ _core_bwd: ``_bwd_kernel`` then
-    ``_dw_dx``): x [n, K], w [2H, K], g [n, H] → (dx [n, K], dW [2H, K])."""
-    return _dw_dx(x, w, gated_mlp_duv_ref(x, w, g.to(x.dtype)))
+    x: torch.Tensor, w: torch.Tensor, g: torch.Tensor, b: torch.Tensor | None = None
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
+    """Plain backward of the fused core (≙ _core_bwd / _core_bwd_b:
+    ``_bwd_kernel`` then ``_dw_dx``): x [n, K], w [2H, K], g [n, H] →
+    (dx [n, K], dW [2H, K], db [2H] or None without a bias)."""
+    duv = gated_mlp_duv_ref(x, w, g.to(x.dtype), b)
+    return (*_dw_dx(x, w, duv), None if b is None else _bias_grad(duv, b))
 
 
-def gated_mlp_xla(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The unfused chain (≙ gated_mlp.py:_xla_gated without bias): the matmul
-    output and the gate stay in the input dtype."""
-    u, v = torch.chunk(F.linear(x, w), 2, dim=-1)
+def gated_mlp_xla(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
+    """The unfused chain (≙ gated_mlp.py:_xla_gated): the matmul output is
+    rounded to the input dtype BEFORE the bias, cast to that dtype, is added;
+    the gate stays in the input dtype."""
+    uv = F.linear(x, w)
+    if b is not None:
+        uv = uv + b.to(uv.dtype)
+    u, v = torch.chunk(uv, 2, dim=-1)
     return u * F.silu(v)
 
 
@@ -102,86 +124,116 @@ def _check_kernel_operands(name: str, x: torch.Tensor, w: torch.Tensor) -> tuple
     return n, k, h
 
 
-def gated_mlp_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Launch K3 on CUDA tensors: x [..., K] bf16, w [2H, K] bf16 → [..., H]
-    bf16.  Counts each launch in ``.launches``."""
+def _check_bias(name: str, b: torch.Tensor | None, h: int) -> None:
+    if b is None:
+        return
+    if not (b.is_cuda and b.dtype == torch.bfloat16 and tuple(b.shape) == (2 * h,)):
+        raise ValueError(f"{name} takes a bf16 CUDA bias of shape {(2 * h,)}, got "
+                         f"{b.dtype} {tuple(b.shape)} on {b.device}")
+    if not b.is_contiguous() or b.data_ptr() % 16:
+        raise ValueError(f"{name} needs a contiguous, 16-byte-aligned bias")
+
+
+def gated_mlp_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch K3 (K6 with a bias) on CUDA tensors: x [..., K] bf16, w [2H, K]
+    bf16, b [2H] bf16 or None → [..., H] bf16.  Counts each launch in
+    ``.launches`` (K3) or ``.launches_bias`` (K6)."""
     from nvit_tpu_torch.ops._build import load_library
 
+    name = "K3" if b is None else "K6"
     *lead, k = x.shape
-    n, k, h = _check_kernel_operands("K3", x.reshape(-1, k), w)
+    n, k, h = _check_kernel_operands(name, x.reshape(-1, k), w)
+    _check_bias(name, b, h)
     x2 = x.reshape(n, k)
     out = torch.empty((n, h), dtype=torch.bfloat16, device=x.device)
-    lib = load_library("gated_mlp_fwd")
-    fn = lib.nvit_gated_mlp_fwd
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn = load_library("gated_mlp_fwd").nvit_gated_mlp_fwd
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = fn(
-        x2.data_ptr(), w.data_ptr(), out.data_ptr(), n, k, h,
+        x2.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(), out.data_ptr(), n, k, h,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"gated_mlp_fwd launch failed: cudaError {err}")
-    gated_mlp_fwd.launches += 1
+    if b is None:
+        gated_mlp_fwd.launches += 1
+    else:
+        gated_mlp_fwd.launches_bias += 1
     return out.reshape(*lead, h)
 
 
 gated_mlp_fwd.launches = 0
+gated_mlp_fwd.launches_bias = 0
 
 
-def gated_mlp_bwd_duv(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """Launch K4 on CUDA tensors: x [n, K], w [2H, K], g [n, H], all bf16 →
-    [du | dv] [n, 2H] bf16.  Counts each launch in ``.launches``."""
+def gated_mlp_bwd_duv(
+    x: torch.Tensor, w: torch.Tensor, g: torch.Tensor, b: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Launch K4 (K6's backward with a bias) on CUDA tensors: x [n, K],
+    w [2H, K], g [n, H], b [2H] or None, all bf16 → [du | dv] [n, 2H] bf16.
+    Counts each launch in ``.launches`` (K4) or ``.launches_bias`` (K6)."""
     from nvit_tpu_torch.ops._build import load_library
 
-    n, k, h = _check_kernel_operands("K4", x, w)
+    name = "K4" if b is None else "K6 backward"
+    n, k, h = _check_kernel_operands(name, x, w)
+    _check_bias(name, b, h)
     if tuple(g.shape) != (n, h) or g.dtype != torch.bfloat16 or not g.is_cuda:
-        raise ValueError(f"K4 takes a bf16 CUDA g of shape {(n, h)}, got {g.dtype} {tuple(g.shape)}")
+        raise ValueError(f"{name} takes a bf16 CUDA g of shape {(n, h)}, got {g.dtype} {tuple(g.shape)}")
     g = g.contiguous()
     duv = torch.empty((n, 2 * h), dtype=torch.bfloat16, device=x.device)
-    lib = load_library("gated_mlp_bwd")
-    fn = lib.nvit_gated_mlp_bwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn = load_library("gated_mlp_bwd").nvit_gated_mlp_bwd
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = fn(
-        x.data_ptr(), w.data_ptr(), g.data_ptr(), duv.data_ptr(), n, k, h,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(), g.data_ptr(),
+        duv.data_ptr(), n, k, h, torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"gated_mlp_bwd launch failed: cudaError {err}")
-    gated_mlp_bwd_duv.launches += 1
+    if b is None:
+        gated_mlp_bwd_duv.launches += 1
+    else:
+        gated_mlp_bwd_duv.launches_bias += 1
     return duv
 
 
 gated_mlp_bwd_duv.launches = 0
+gated_mlp_bwd_duv.launches_bias = 0
 
 
 class GatedMLPFn(torch.autograd.Function):
-    """K3 forward, K4 + the two dense products backward (≙ _gated_core's
-    custom VJP); the plain twins on CPU tensors.  Saves x and w, as
-    ``_core_fwd`` does, and casts g to x's dtype first, as ``_core_bwd``."""
+    """K3 (K6) forward; K4 (K6's backward) + the two dense products and the
+    bias's column sum backward (≙ _gated_core's and _gated_core_b's custom
+    VJPs); the plain twins on CPU tensors.  Saves x, w and b, as
+    ``_core_fwd(_b)`` does, and casts g to x's dtype first, as ``_core_bwd``."""
 
     @staticmethod
-    def forward(ctx, x2, w):
-        ctx.save_for_backward(x2, w)
-        return gated_mlp_fwd(x2, w) if x2.is_cuda else gated_mlp_ref(x2, w)
+    def forward(ctx, x2, w, b):
+        ctx.save_for_backward(x2, w, b)
+        return gated_mlp_fwd(x2, w, b) if x2.is_cuda else gated_mlp_ref(x2, w, b)
 
     @staticmethod
     def backward(ctx, g):
-        x2, w = ctx.saved_tensors
+        x2, w, b = ctx.saved_tensors
         g = g.to(x2.dtype)
-        duv = gated_mlp_bwd_duv(x2, w, g) if x2.is_cuda else gated_mlp_duv_ref(x2, w, g)
-        return _dw_dx(x2, w, duv)
+        duv = gated_mlp_bwd_duv(x2, w, g, b) if x2.is_cuda else gated_mlp_duv_ref(x2, w, g, b)
+        return (*_dw_dx(x2, w, duv), None if b is None else _bias_grad(duv, b))
 
 
-def gated_mlp(x: torch.Tensor, w: torch.Tensor, *, use_kernel: bool = True) -> torch.Tensor:
-    """``u * silu(v)`` with ``[u | v] = x Wᵀ``; x and w already in the compute
-    dtype (the caller casts, as core.layers.linear does).  With
-    ``use_kernel``, K3/K4 on CUDA tensors and their twins on CPU tensors."""
+def gated_mlp(
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *, use_kernel: bool = True
+) -> torch.Tensor:
+    """``u * silu(v)`` with ``[u | v] = x Wᵀ (+ b)``; x and w already in the
+    compute dtype (the caller casts, as core.layers.linear does), the bias
+    cast to x's dtype here (≙ _gated_dispatch).  With ``use_kernel``, K3/K4
+    (K6 with a bias) on CUDA tensors and their twins on CPU tensors."""
+    if b is not None:
+        b = b.to(x.dtype)
     if not use_kernel:
-        return gated_mlp_xla(x, w)
+        return gated_mlp_xla(x, w, b)
     *lead, k = x.shape
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        return GatedMLPFn.apply(x.reshape(-1, k), w).reshape(*lead, w.shape[0] // 2)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, w, b)):
+        return GatedMLPFn.apply(x.reshape(-1, k), w, b).reshape(*lead, w.shape[0] // 2)
     if x.is_cuda:
-        return gated_mlp_fwd(x, w)
-    return gated_mlp_ref(x, w)
+        return gated_mlp_fwd(x, w, b)
+    return gated_mlp_ref(x, w, b)

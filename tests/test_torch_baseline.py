@@ -41,7 +41,7 @@ from nvit_tpu_torch.models.vit import ViT
 from nvit_tpu_torch.train.optim import decay_mask, init_fused_adamw
 from nvit_tpu_torch.train.state import TrainState
 from nvit_tpu_torch.train.step import make_train_step
-from tests.torch_parity import port_config, random_jax_params
+from tests.torch_parity import baseline_params, port_config, random_jax_params
 
 # the module, not the function the package re-exports under its name
 jax_fa = importlib.import_module("nvit_tpu.ops.flash_attention")
@@ -234,20 +234,6 @@ def base_cfg(**kw):
                 local_patch_size=4, global_patch_size=8, use_nvit=False, flash_attn=False)
     base.update(kw)
     return jax_schema.ViTConfig(**base)
-
-
-def baseline_params(cfg, seed):
-    """random_jax_params with the q/k weights (blocks and cross-attention)
-    five times larger.  At init scale the attention is near-uniform, and the
-    baseline cross-attention (no residual) then hands every block almost the
-    same token: the q/k gradients shrink to ~1e-7 of the others and become a
-    cancellation that rounding decides — no test of the port."""
-    params = random_jax_params(cfg, seed=seed)
-    for p, names in [(blk, ("query", "key")) for blk in params["blocks"]] + [
-            (params["cross_attention"], ("q_local", "k_global"))]:
-        for name in names:
-            p[name]["w"] = 5 * p[name]["w"]
-    return params
 
 
 def port_model(params, cfg):

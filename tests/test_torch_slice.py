@@ -59,7 +59,7 @@ JDT = {None: None, "bf16": jnp.bfloat16}
 TDT = {None: None, "bf16": torch.bfloat16}
 
 
-@pytest.mark.parametrize("policy,bias", [(None, False), ("bf16", False), (None, True)])
+@pytest.mark.parametrize("policy,bias", [(None, False), ("bf16", False), (None, True), ("bf16", True)])
 def test_embed_blocks_match_jax_plain_path(policy, bias):
     cfg = small_cfg(bias=bias)
     params = random_jax_params(cfg)

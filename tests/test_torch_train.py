@@ -6,6 +6,9 @@
   ``nvit_tpu.train.step.make_train_step`` with the Pallas kernels forced
   through the generic interpreter (tests/kernel_force.py); parameters and
   metrics are compared after the two steps;
+* the same with ``bias=True`` (``settings.yaml``'s setting), nViT and
+  baseline, in fp32 (the K6 twins on the CPU), and one step's bias and
+  ``suv`` gradients against ``jax.grad`` of the loss that step takes;
 * the data path: ``make_synthetic`` arrays, epoch order and batches equal to
   the JAX package's;
 * the trainer: a few iterations on tiny synthetic data write
@@ -32,17 +35,17 @@ from nvit_tpu_torch.train.optim import init_fused_adamw
 from nvit_tpu_torch.train.state import TrainState
 from nvit_tpu_torch.train.step import make_train_step
 from nvit_tpu_torch.train.trainer import Trainer
-from tests.torch_parity import random_jax_params
+from tests.torch_parity import baseline_params, random_jax_params
 
 torch.set_num_threads(1)
 
 BATCH = 4
 
 
-def slice_configs(dtype: str, accum: int):
+def slice_configs(dtype: str, accum: int, **model_kw):
     """(JAX Config, port Config) of the tiny slice, field for field equal."""
     model = preset("nvit-tiny4")
-    model.update(n_layer=2, num_classes=10, flash_attn=True)
+    model.update(n_layer=2, num_classes=10, flash_attn=True, **model_kw)
     sections = dict(
         model=model,
         training=dict(batch_size=BATCH, gradient_accumulation_steps=accum),
@@ -119,6 +122,13 @@ def test_two_train_steps_match_jax(jax_two_steps, dtype, accum):
       a few sign flips of near-zero steps dominate)."""
     params0, jax_params, jax_metrics = jax_two_steps[dtype, accum]
     _, cfg = slice_configs(dtype, accum)
+    assert_two_steps_match(cfg, params0, jax_params, jax_metrics, 1e-5 if dtype == "float32" else 3e-2)
+
+
+def assert_two_steps_match(cfg, params0, jax_params, jax_metrics, update_rel_l2):
+    """Two port steps from ``params0`` on ``batches``: metrics, every
+    parameter and the whole update against JAX's (see the callers' bounds)."""
+    dtype = cfg.system.dtype
     model = ViT(cfg.model, device="cpu")
     model.load_state_dict(state_dict_from_jax(params0, cfg.model), strict=True)
     state = TrainState(model=model, opt_state=init_fused_adamw(model.named_parameters()),
@@ -149,8 +159,95 @@ def test_two_train_steps_match_jax(jax_two_steps, dtype, accum):
         elif d_want.norm() > 0:
             assert (d_got - d_want).norm() <= 0.3 * d_want.norm(), name
         moved += int(not torch.equal(got[name], before[name]))
-    assert diff2 ** 0.5 <= (1e-5 if dtype == "float32" else 3e-2) * ref2 ** 0.5
+    assert diff2 ** 0.5 <= update_rel_l2 * ref2 ** 0.5
     assert moved > len(want) // 2  # the steps really moved the weights
+
+
+# ------------------------------------------------------------------ bias
+BIAS_MODES = {"nvit": dict(bias=True), "baseline": dict(bias=True, use_nvit=False)}
+
+
+@pytest.fixture(scope="module")
+def jax_bias_steps():
+    """Per mode, fp32, bias=True: the JAX parameters, one step's gradients
+    (``jax.grad`` of ``make_train_step``'s own loss on the first batch), and
+    the parameters and metrics after two steps.  Baseline's q/k weights are
+    ×5 (``baseline_params``)."""
+    from nvit_tpu.train.optim import init_fused_adamw as jax_init
+    from nvit_tpu.train.state import TrainState as JaxState
+    from nvit_tpu.train.step import make_loss_fn as jax_make_loss_fn
+    from nvit_tpu.train.step import make_train_step as jax_make_train_step
+    from tests.kernel_force import force_on_tpu, generic_interpret_mode
+
+    out = {}
+    with force_on_tpu(), generic_interpret_mode():
+        for mode, kw in BIAS_MODES.items():
+            jcfg, _ = slice_configs("float32", 1, **kw)
+            params = (baseline_params if mode == "baseline" else random_jax_params)(jcfg.model, seed=13)
+            data = [(jax_normalize(jnp.asarray(imgs)), jnp.asarray(labels)) for imgs, labels in batches(jcfg)]
+            loss_fn = jax_make_loss_fn(jcfg)
+            grads = jax.jit(jax.grad(lambda p, x, y: loss_fn(p, x, y, jnp.zeros((), jnp.int32))[0]))(
+                params, *data[0])
+            state = JaxState(params=jax.tree_util.tree_map(jnp.asarray, params),
+                             opt_state=jax_init(params), step=jnp.zeros((), jnp.int32),
+                             rng=jax.random.PRNGKey(0))
+            step = jax.jit(jax_make_train_step(jcfg))
+            metrics = []
+            for x, y in data:
+                state, m = step(state, x, y)
+                metrics.append({k: float(m[k]) for k in METRICS})
+            out[mode] = (params, jax.tree_util.tree_map(np.asarray, grads),
+                         jax.tree_util.tree_map(np.asarray, state.params), metrics)
+    return out
+
+
+@pytest.mark.parametrize("mode", BIAS_MODES)
+def test_two_train_steps_with_bias_match_jax(jax_bias_steps, mode):
+    """bias=True, fp32: the bounds of the fp32 case above — metrics rtol
+    1e-4, every weight within 1e-4 — and the whole update within 1e-5
+    relative L2 in nViT, 1e-4 in baseline (whose d skip_param is a
+    cancellation, tests/test_torch_baseline.py)."""
+    params0, _, jax_params, jax_metrics = jax_bias_steps[mode]
+    _, cfg = slice_configs("float32", 1, **BIAS_MODES[mode])
+    assert_two_steps_match(cfg, params0, jax_params, jax_metrics, 1e-5 if mode == "nvit" else 1e-4)
+
+
+@pytest.mark.parametrize("mode", BIAS_MODES)
+def test_bias_and_suv_gradients_match_jax(jax_bias_steps, mode):
+    """One step's gradients, fp32, of every bias — the gated c_fc and
+    cross-attention proj biases through K6's db, in nViT the c_fc bias
+    through the suv fold — and of suv, which the folded bias reaches too,
+    against ``jax.grad`` of the JAX step's loss: each within 1e-4 relative
+    L2 (summation order only; measured ≤ 1e-6).  A gradient below 1e-6 of
+    the largest is a cancellation that rounding decides, and must only stay
+    that small: in baseline the key biases' (exactly 0 — softmax ignores a
+    shift of every score in a row; measured 1e-11) and the blocks' query
+    biases' (1e-8: the cross-attention hands the blocks near-equal tokens)."""
+    from nvit_tpu_torch.train.step import make_loss_fn
+
+    params0, grads, _, _ = jax_bias_steps[mode]
+    _, cfg = slice_configs("float32", 1, **BIAS_MODES[mode])
+    model = ViT(cfg.model, device="cpu")
+    model.load_state_dict(state_dict_from_jax(params0, cfg.model), strict=True)
+    imgs, labels = batches(cfg)[0]
+    loss, _ = make_loss_fn(cfg)(model, normalize(torch.from_numpy(imgs)), torch.from_numpy(labels).long())
+    loss.backward()
+    want = state_dict_from_jax(grads, cfg.model)
+    got = dict(model.named_parameters())
+    names = [n for n in want if n.endswith(".bias") or n.endswith(".suv")]
+    assert "cross_attention.proj.bias" in names and "transformer.h.1.c_fc.bias" in names
+    assert any(n.endswith(".suv") for n in names) == (mode == "nvit")
+    floor = 1e-6 * max(float(want[n].norm()) for n in names)
+    checked = 0
+    for name in names:
+        g = torch.zeros_like(want[name]) if got[name].grad is None else got[name].grad
+        if want[name].norm() <= floor:  # a cancellation, or outside the loss (reconstruction)
+            assert g.norm() <= floor, name
+            continue
+        rel = float((g - want[name]).norm() / want[name].norm())
+        assert rel <= 1e-4, f"{name}: relative L2 {rel:.3e}"
+        checked += 1
+    assert checked >= len(names) - (1 if mode == "nvit" else 7)
 
 
 # ------------------------------------------------------------------ data

@@ -40,3 +40,17 @@ def random_jax_params(cfg, seed: int = 0) -> dict:
         return (0.02 * noise).astype(np.float32)
 
     return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
+def baseline_params(cfg, seed):
+    """random_jax_params with the q/k weights (blocks and cross-attention)
+    five times larger.  At init scale the attention is near-uniform, and the
+    baseline cross-attention (no residual) then hands every block almost the
+    same token: the q/k gradients shrink to ~1e-7 of the others and become a
+    cancellation that rounding decides — no test of the port."""
+    params = random_jax_params(cfg, seed=seed)
+    for p, names in [(blk, ("query", "key")) for blk in params["blocks"]] + [
+            (params["cross_attention"], ("q_local", "k_global"))]:
+        for name in names:
+            p[name]["w"] = 5 * p[name]["w"]
+    return params
