@@ -18,23 +18,32 @@ Phases (any failure raises, and the script exits non-zero with no result):
                (its fused and split backward, one source) against their plain
                PyTorch twins at the main paths' shapes and at ragged ones, and
                the autograd Functions' CUDA gradients against autograd through
-               the twins;
+               the twins; K10 (the q-sub-tiled QK-norm backward) against its
+               twin at the bench's shape, nsplit 2 and 7, and a ragged one,
+               and bit-deterministic;
+4. bench    — ``python -m nvit_tpu_torch.scripts.attn_bwd_split_bench``'s
+               main() on the card (its 3e-2 asserts against K5's backward
+               are not caught): K10's counter must rise by exactly the
+               bench's K10 calls and K2's and K5's only by its integrated
+               calls;
+5. times    — K10 at nsplit 2 and 7 against K2 and K5's backward in turns,
+               its twin, the unfused chain and SDPA's backward;
 then for each full path — nViT-B/16 (``use_nvit=True``), the baseline
 ViT-B/16 (``flagship_config(use_nvit=False)``) and path A, nViT-B/16 as
 settings.yaml runs it (``flagship_config(bias=True)``), random weights and
 biases from a seed:
-4. serve    — behind InferenceService + make_handler on a local
+6. serve    — behind InferenceService + make_handler on a local
                ThreadingHTTPServer: /predict at batches 1, 4 and 32, /healthz,
                /stats; the path's attention forward (K1, or K7) and gated MLP
                (K3, or K6 with a bias) must launch 13 times per forward and
                no other kernel; served probabilities against the same weights
                on the plain path (flash_attn=False, gated MLP off);
-5. times    — each of the path's kernels against its twin, the unfused chain
+7. times    — each of the path's kernels against its twin, the unfused chain
                and (attention) PyTorch's fused SDPA, by CUDA events (K9 at
                T = 1100, where the JAX package takes it; path A times K5 and
                K6); forward latency at batch 1 and 32 and img/s on the kernel
                and plain paths;
-6. train    — training at batch 32, bf16: one make_train_step step launches
+8. train    — training at batch 32, bf16: one make_train_step step launches
                the path's four kernels (K1–K4, K7/K8/K3/K4, or K1/K2/K6) 13
                times each and no other; loss and per-group gradients (biases
                and suv included) against the plain path on the same weights
@@ -45,14 +54,16 @@ biases from a seed:
 then, at full width with bias=True, the baseline ViT-B/16, path B (nViT-B/16
 with ``bounded_softmax="bounded"``) and "auto" below its gate (sqk_eff = 1,
 bound 8) and above it (sqk × 2, bound 32):
-7. check    — one batch-32 forward through Predictor and one training step,
+9. check    — one batch-32 forward through Predictor and one training step,
                each launching the path's kernels 13 times and no other;
                logits, loss and per-group gradients against the plain path;
                in "auto", the logits bit-equal to the static arm the gate
                picks and unequal to the other arm's.
 
-K9 is not on any main path (T = 784 ≤ 1024 takes K8), so its launch count
-in the summary is 0; the kernels phase checks it and the times phase times it.
+K9 is not on any main path (T = 784 ≤ 1024 takes K8), nor is K10 (only the
+bench runs it), so their launch counts in the summary are 0 per training
+step; the kernels phase checks both, the bench phase runs K10 (its count
+there is the summary's ``bench_launches``) and the times phases time both.
 The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -89,6 +100,10 @@ PROB_RTOL = 0.05
 # K2's fp32 dsqk sums T·D products per (b, h): bound on max|Δ| relative to
 # max|dsqk_ref|
 DSQK_RTOL = 2e-2
+# K10 vs its twin, relative L2 of dq/dk/dv: the two share every bf16
+# rounding point (q̂_s, k̂, k̂_s, P, dS), which leaves well under 1e-4; one
+# point moved to fp32 puts 2.5e-3 or more into some output
+K10_REL_L2 = 1e-3
 # kernel path vs plain path in training, same weights and batch, 12 bf16
 # layers: loss within 1%, each parameter group's gradient within 5e-2
 # relative L2 (the paths round at different points, as in serving)
@@ -114,6 +129,7 @@ KERNELS = {  # summary name → (source, TPU kernel it replaces)
     "qknorm_attn_bwd_bounded": ("nvit_tpu_torch/csrc/qknorm_attn_bwd.cu", "nvit_tpu/ops/flash_attention.py:602"),
     "gated_mlp_fwd_bias": ("nvit_tpu_torch/csrc/gated_mlp_fwd.cu", "nvit_tpu/ops/gated_mlp.py:96"),
     "gated_mlp_bwd_bias": ("nvit_tpu_torch/csrc/gated_mlp_bwd.cu", "nvit_tpu/ops/gated_mlp.py:104"),
+    "qknorm_attn_bwd_subtiled": ("nvit_tpu_torch/csrc/qknorm_attn_bwd.cu", "scripts/attn_bwd_split_bench.py:65"),
 }
 SOURCES = sorted({Path(src).stem for src, _ in KERNELS.values()})
 # the kernels each path's serving forward and training step launch, 13 times
@@ -211,7 +227,8 @@ def launch_counts() -> dict:
             "gated_mlp_bwd_bias": (gated_mlp_bwd_duv, "launches_bias"),
             "flash_attn_fwd": (fa.flash_attention_fwd, "launches"),
             "flash_attn_bwd_fused": (fa.attention_bwd_fused, "launches"),
-            "flash_attn_bwd_split": (fa.attention_bwd_split, "launches")}
+            "flash_attn_bwd_split": (fa.attention_bwd_split, "launches"),
+            "qknorm_attn_bwd_subtiled": (fa.qknorm_attention_bwd_subtiled, "launches")}
 
 
 def check_launches(launches: dict, expected: dict, what: str) -> None:
@@ -381,6 +398,7 @@ def kernel_phase() -> dict:
     check(max(rel) <= GRAD_REL_L2, f"GatedMLPFn gradients disagree with the twin's: {rel}")
     baseline_kernel_checks(errs)
     bias_bounded_kernel_checks(errs)
+    subtiled_kernel_checks(errs)
     return errs
 
 
@@ -559,6 +577,116 @@ def bias_bounded_kernel_checks(errs: dict) -> None:
               "dk {:.3e} dv {:.3e} dsqk {:.3e}".format(factor, *rel))
         check(all(torch.isfinite(a.grad).all().item() for a in leaves), "FlashQKNormFn (K5): non-finite gradient")
         check(max(rel) <= GRAD_REL_L2, f"FlashQKNormFn (K5) gradients disagree with the twin's: {rel}")
+
+
+def subtiled_kernel_checks(errs: dict) -> None:
+    """K10 against its twin at the bench's shape, nsplit 2 (chunks of 64
+    rows) and 7 (112 = 64 + 48), and at a ragged one (112 rows in seven
+    16-row sub-tiles), q/k/v as views of a fused QKV buffer; a second call
+    on the same inputs gives the same bytes."""
+    from nvit_tpu_torch.ops import flash_attention as fa
+
+    def as_bytes(x):
+        return x.contiguous().view(torch.uint8)
+
+    for (b, h, t, d), nsplit in (((32, 12, 784, 64), 2), ((32, 12, 784, 64), 7), ((2, 3, 112, 64), 7)):
+        q, k, v, sqk, do = qkv_view_inputs(b, h, t, d, seed=t + nsplit)
+        o, lse = fa.qknorm_attention_fwd(q, k, v, sqk, 8.0, with_lse=True)
+        got = fa.qknorm_attention_bwd_subtiled(q, k, v, sqk, 8.0, o, lse, do, nsplit)
+        again = fa.qknorm_attention_bwd_subtiled(q, k, v, sqk, 8.0, o, lse, do, nsplit)
+        want = fa.qknorm_attention_bwd_subtiled_ref(q, k, v, sqk, 8.0, o, lse, do, nsplit)
+        torch.cuda.synchronize()
+        e = [max_err(a, r) for a, r in zip(got, want)]
+        rel = [rel_l2(a, r) for a, r in zip(got[:3], want[:3])]
+        dsqk_bound = DSQK_RTOL * want[3].abs().max().item()
+        same = all(torch.equal(as_bytes(a), as_bytes(r)) for a, r in zip(got, again))
+        print(f"K10 [B={b}, H={h}, T={t}, D={d}] nsplit {nsplit} (sub-tiles {fa.split_bounds(t, nsplit)}): "
+              f"max|Δ| dq {e[0]:.3e} dk {e[1]:.3e} dv {e[2]:.3e}, dsqk {e[3]:.3e} (bound {dsqk_bound:.3e}); "
+              "rel L2 dq {:.3e} dk {:.3e} dv {:.3e}; two calls bit-equal: {}".format(*rel, same))
+        check(all(torch.isfinite(x).all().item() for x in got), "K10: non-finite output")
+        for a, r in zip(got[:3], want[:3]):
+            torch.testing.assert_close(a.float(), r.float(), **KERNEL_TOL)
+        check(max(rel) <= K10_REL_L2, f"K10 rel L2 {rel} exceeds {K10_REL_L2}: a rounding point differs")
+        check(e[3] <= dsqk_bound, f"K10 dsqk max|Δ| {e[3]:.3e} exceeds {dsqk_bound:.3e}")
+        check(same, "K10: two calls on the same inputs differ")
+        errs["qknorm_attn_bwd_subtiled"] = max(errs["qknorm_attn_bwd_subtiled"], *e[:3])
+        del q, k, v, do, o, lse, got, again, want
+    torch.cuda.empty_cache()
+
+
+def bench_phase() -> int:
+    """The port of scripts/attn_bwd_split_bench.py on the card, in this
+    process; its asserts are not caught.  K10's counter rises by exactly the
+    bench's K10 calls, K2's and K5's only by its integrated calls, K5's
+    forward once → K10's launches in the bench."""
+    from nvit_tpu_torch.scripts import attn_bwd_split_bench as bench
+
+    phase("bench: python -m nvit_tpu_torch.scripts.attn_bwd_split_bench")
+    reset_counts()
+    result = bench.main(["--device", "cuda"])
+    launches = read_counts()
+    calls = result["calls"]
+    print(f"launches in the bench: {launches}; the bench's calls: {calls}")
+    check_launches(launches, {"qknorm_attn_bwd_subtiled": calls["subtiled"], "qknorm_attn_bwd": calls["rowmax"],
+                              "qknorm_attn_bwd_bounded": calls["integrated"], "qknorm_attn_fwd_bounded": 1},
+                   "the bench")
+    check(calls["subtiled"] > 0, "the bench launched no K10")
+    torch.cuda.empty_cache()
+    return launches["qknorm_attn_bwd_subtiled"]
+
+
+def subtiled_time_phase() -> dict:
+    """K10 (nsplit 2 and 7) against K2 and K5's backward in turns, at the
+    bench's shape, then its twin, the flash_attn=False chain and SDPA's
+    backward on the projected q̂/k̂ (library_ms: a yardstick, used nowhere in
+    the port).  bound_ms counts the function's bytes (K2's); the design's
+    dq̂ partial buffer, written once and read once, is counted apart."""
+    import torch.nn.functional as F
+
+    from nvit_tpu_torch.ops import flash_attention as fa
+    from nvit_tpu_torch.ops.attention import attention_qknorm, qknorm_project
+
+    phase("times, K10 (q-sub-tiled backward) against K2 and K5's backward")
+    b, h, t, d, scale = 32, 12, 784, 64, 8.0
+    q, k, v, sqk, do = qkv_view_inputs(b, h, t, d, seed=13)
+    o, lse = fa.qknorm_attention_fwd(q, k, v, sqk, scale, with_lse=True)
+    o_b, lse_b = fa.qknorm_attention_fwd(q, k, v, sqk, scale, with_lse=True, mode="bounded")
+    arms = {
+        "K2": lambda: fa.qknorm_attention_bwd(q, k, v, sqk, scale, o, lse, do),
+        "K10 nsplit=2": lambda: fa.qknorm_attention_bwd_subtiled(q, k, v, sqk, scale, o, lse, do, 2),
+        "K10 nsplit=7": lambda: fa.qknorm_attention_bwd_subtiled(q, k, v, sqk, scale, o, lse, do, 7),
+        "K5 backward": lambda: fa.qknorm_attention_bwd(q, k, v, sqk, scale, o_b, lse_b, do, "bounded"),
+    }
+    runs = {name: [] for name in arms}
+    for name in [*arms, *reversed(arms)]:  # in turns: drift on the card hits every arm alike
+        runs[name].append(cuda_ms(arms[name]))
+    ms = {name: statistics.mean(x) for name, x in runs.items()}
+    plain = cuda_ms(lambda: fa.qknorm_attention_bwd_subtiled_ref(q, k, v, sqk, scale, o, lse, do, 2), iters=5)
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v, sqk)]
+    out = attention_qknorm(*leaves, scale, use_flash=False)
+    off = cuda_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), iters=5)
+    qh, kh = (x.detach().requires_grad_() for x in qknorm_project(q, k, sqk, v.dtype))
+    vv = v.detach().clone().requires_grad_()
+    out = F.scaled_dot_product_attention(qh, kh, vv, scale=scale)
+    lib = cuda_ms(lambda: torch.autograd.grad(out, (qh, kh, vv), do, retain_graph=True))
+    for name, x in runs.items():
+        print(f"{name} [B={b}, H={h}, T={t}, D={d}]: {ms[name]:.4f} ms (medians of 20, in turns: "
+              f"{', '.join(f'{m:.4f}' for m in x)})")
+    print(f"K10 twin (nsplit 2) {plain:.4f} ms (median of 5), flash_attn=False autograd backward {off:.4f} ms "
+          f"(median of 5), SDPA backward on projected q/k {lib:.4f} ms; K10 nsplit 2 / K2 "
+          f"{ms['K10 nsplit=2'] / ms['K2']:.3f}, nsplit 7 / K2 {ms['K10 nsplit=7'] / ms['K2']:.3f}")
+    flops = 10 * b * h * t * t * d
+    nbytes = 8 * b * h * t * d * 2 + b * h * t * 4 + h * d * 4 + b * h * d * 4
+    partials = 2 * b * h * -(-t // fa.BLOCK) * t * d * 4
+    bound_ms, bound_by = bound(flops, nbytes)
+    design_ms, design_by = bound(flops, nbytes + partials)
+    print(f"K10 bound {bound_ms:.4f} ms ({bound_by}); with the dq̂ partial buffer ({partials / 2**30:.3f} GiB "
+          f"written and read) {design_ms:.4f} ms ({design_by})")
+    del q, k, v, do, o, lse, o_b, lse_b, leaves, out, qh, kh, vv
+    torch.cuda.empty_cache()
+    return {"qknorm_attn_bwd_subtiled": dict(
+        ms=ms["K10 nsplit=2"], ms_nsplit_7=ms["K10 nsplit=7"], plain_ms=plain, library_ms=lib,
+        bound_ms=bound_ms, bound_by=bound_by, bound_ms_with_dq_partials=design_ms)}
 
 
 def post(addr, path, body, content_type):
@@ -1252,6 +1380,8 @@ def main() -> int:
     smi = device_phase()
     build_phase()
     errs = kernel_phase()
+    bench_launches = bench_phase()
+    k10_times = subtiled_time_phase()
     reuse_synthetic_data()
 
     nvit_cfg = Config(model=ViTConfig(**preset("nvit-b16"), num_classes=1000))
@@ -1289,6 +1419,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
     launches["flash_attn_bwd_split"] = stepped["flash_attn_bwd_split"]  # 0: T = 784 takes K8
+    launches["qknorm_attn_bwd_subtiled"] = stepped["qknorm_attn_bwd_subtiled"]  # 0: only the bench runs K10
+    times.update(k10_times)
+    times["qknorm_attn_bwd_subtiled"]["bench_launches"] = bench_launches
 
     checks = (  # (path, title, config, gradient groups, sqk factor, the arm "auto" must take)
         ("baseline-bias", "baseline ViT-B/16, bias=True", flagship_config(use_nvit=False, bias=True),

@@ -24,6 +24,11 @@ sm_90a (``csrc/``), each forward joined to its backward by a
 * ``ops/gated_mlp.py`` — fused gated-MLP forward (K3) and backward (K4),
   and both with a bias (K6).
 
+K10, the q-sub-tiled QK-norm backward (``ops/flash_attention.py``
+``qknorm_attention_bwd_subtiled``), is on neither path: its entry point is
+``scripts/attn_bwd_split_bench.py``, the port of the JAX repository's A/B
+of it against the integrated backward.
+
 Each kernel wrapper runs its plain PyTorch twin on CPU tensors and launches
 the CUDA kernel (or raises) on CUDA tensors.  Checkpoint files, the CLI and
 Kohonen come in later slices (ROADMAP.md).

@@ -37,14 +37,15 @@ class Predictor:
         state_dict_or_module: Mapping[str, torch.Tensor] | ViT,
         model_cfg: ViTConfig,
         *,
-        device: torch.device | str,
+        device: torch.device | str = "cuda",
         compute_dtype: torch.dtype | None = torch.bfloat16,
         data_parallel: bool = False,
         model_parallel: int = 1,
         quantize: str | None = None,
     ):
-        """``state_dict_or_module``: a ``ViT`` (moved to ``device``) or its
-        ``state_dict`` (loaded strictly).  ``compute_dtype=None`` runs fp32."""
+        """``state_dict_or_module``: a ``ViT`` (moved to ``device``, the card
+        unless the caller asks for the CPU) or its ``state_dict`` (loaded
+        strictly).  ``compute_dtype=None`` runs fp32."""
         if data_parallel or model_parallel != 1:
             raise NotImplementedError(
                 "data_parallel / model_parallel are not ported yet (ROADMAP.md, multi-GPU)"
@@ -62,7 +63,8 @@ class Predictor:
         self.model = model.eval()
 
     @classmethod
-    def from_config(cls, cfg: Config, seed: int = 0, *, device: torch.device | str, **kw) -> "Predictor":
+    def from_config(cls, cfg: Config, seed: int = 0, *, device: torch.device | str = "cuda",
+                    **kw) -> "Predictor":
         """Fresh random weights from ``seed`` (testing / warm-pool prebuild)."""
         device = torch.device(device)
         g = torch.Generator(device=device)

@@ -12,6 +12,11 @@ The kernels are ``csrc/qknorm_attn_fwd.cu`` and ``csrc/qknorm_attn_bwd.cu``;
 K5's launches are counted apart (``.launches_bounded``, ``.launches_auto``).
 Past ``FUSED_BWD_MAX_T`` the JAX package projects q̂/k̂ in fp32 and takes the
 plain flash kernels whatever the mode; so does ``flash_attention_qknorm``.
+K10 (``qknorm_attention_bwd_subtiled``, in ``csrc/qknorm_attn_bwd.cu``)
+replaces scripts/attn_bwd_split_bench.py::_bwd_split_kernel, K2's plain
+recompute walked in ``nsplit`` query sub-tiles in one pass; it is on no
+training or serving path, only behind that script's port
+(``nvit_tpu_torch.scripts.attn_bwd_split_bench``).
 
 Baseline mode (plain softmax(q·kᵀ·scale)·v): K7 replaces ``_fwd_kernel``
 (launched by ``_fwd``); K8 replaces ``_bwd_fused_kernel`` and K9 the split
@@ -122,10 +127,11 @@ def flash_attention_qknorm_ref(
 def qknorm_attention_bwd_ref(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sqk_eff: torch.Tensor, scale: float,
     o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, mode: str = "rowmax",
+    bounds: list[tuple[int, int]] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain twin of K2 (≙ _bwd_fused_qknorm_kernel; K5's backward with
-    ``mode="bounded"``) → (dq, dk, dv in the inputs' dtypes, dsqk [B, H, D]
-    fp32 per (b, h)).
+    ``mode="bounded"``; K10's with ``bounds``) → (dq, dk, dv in the inputs'
+    dtypes, dsqk [B, H, D] fp32 per (b, h)).
 
     The TPU kernel body with its rounding points: q̂_s = bf16((s·scale)·qn),
     k̂ = bf16(s·kn), k̂_s = bf16((s·scale)·kn); P = exp(S − lse) — in
@@ -133,35 +139,71 @@ def qknorm_attention_bwd_ref(
     plain form, as ``_bwd_qknorm``; Δ = rowsum
     (dO∘O) in fp32; dS = P·(dP − Δ); bf16(P) and bf16(dS) feed the fp32
     products dV, dk̂, dq̂; dsqk = Σ_t(dq̂⊙qn + dk̂⊙kn); then the justnorm VJP
-    divides by the floored norms."""
+    divides by the floored norms.  The query rows are walked in the row
+    ranges ``bounds`` (default one, [0, T)), in order: each range takes its
+    own Δ and its complete dq̂ rows, and dV and dk̂ accumulate in fp32 across
+    the ranges, as K10 walks its sub-tiles."""
     _check_mode(mode)
     h, d = sqk_eff.shape
     s = sqk_eff.float().reshape(1, h, 1, d)
     qn, qnorm = _norm32(q)
     kn, knorm = _norm32(k)
     qhat_s = ((s * scale) * qn).to(v.dtype).float()
-    khat = (s * kn).to(v.dtype).float()
+    khat_t = (s * kn).to(v.dtype).float().transpose(-1, -2)
     khat_s = ((s * scale) * kn).to(v.dtype).float()
-    do32 = do.float()
-    scores = torch.matmul(qhat_s, khat.transpose(-1, -2))
-    if mode == "bounded":
-        bound = head_bounds(sqk_eff, scale).reshape(1, h, 1, 1)
-        p = torch.exp(torch.clamp_min(scores - bound, BOUNDED_EXP_FLOOR) + (bound - lse.unsqueeze(-1)))
-    else:
-        p = torch.exp(scores - lse.unsqueeze(-1))
-    delta = torch.sum(do32 * o.float(), dim=-1, keepdim=True)
-    dp = torch.matmul(do32, v.float().transpose(-1, -2))
-    ds = (p * (dp - delta)).to(q.dtype).float()
-    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), do32).to(v.dtype)
-    dkhat = torch.matmul(ds.transpose(-1, -2), qhat_s)
-    dqhat = torch.matmul(ds, khat_s)
+    do32, o32, v32_t = do.float(), o.float(), v.float().transpose(-1, -2)
+    bound = head_bounds(sqk_eff, scale).reshape(1, h, 1, 1) if mode == "bounded" else None
+    dv = torch.zeros_like(khat_s)
+    dkhat = torch.zeros_like(khat_s)
+    dqhat = []
+    for a, e in bounds or [(0, q.shape[2])]:
+        qh, doh, lse_h = qhat_s[..., a:e, :], do32[..., a:e, :], lse[..., a:e].unsqueeze(-1)
+        scores = torch.matmul(qh, khat_t)
+        if bound is not None:
+            p = torch.exp(torch.clamp_min(scores - bound, BOUNDED_EXP_FLOOR) + (bound - lse_h))
+        else:
+            p = torch.exp(scores - lse_h)
+        delta = torch.sum(doh * o32[..., a:e, :], dim=-1, keepdim=True)
+        ds = (p * (torch.matmul(doh, v32_t) - delta)).to(q.dtype).float()
+        dv = dv + torch.matmul(p.to(do.dtype).float().transpose(-1, -2), doh)
+        dkhat = dkhat + torch.matmul(ds.transpose(-1, -2), qh)
+        dqhat.append(torch.matmul(ds, khat_s))
+    dqhat = torch.cat(dqhat, dim=-2)
     dsqk = torch.sum(dqhat * qn + dkhat * kn, dim=-2)
+    return (_justnorm_vjp(dqhat, qn, qnorm, s).to(q.dtype), _justnorm_vjp(dkhat, kn, knorm, s).to(k.dtype),
+            dv.to(v.dtype), dsqk)
 
-    def vjp(dxhat, xn, norm):
-        dxn = s * dxhat
-        return (dxn - xn * torch.sum(xn * dxn, dim=-1, keepdim=True)) / norm
 
-    return vjp(dqhat, qn, qnorm).to(q.dtype), vjp(dkhat, kn, knorm).to(k.dtype), dv, dsqk
+def _justnorm_vjp(dxhat: torch.Tensor, xn: torch.Tensor, norm: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """fp32 dx = (s⊙dx̂ − xn·Σ(xn ⊙ s⊙dx̂))/‖x‖: the VJP of x̂ = s ⊙ x/‖x‖."""
+    dxn = s * dxhat
+    return (dxn - xn * torch.sum(xn * dxn, dim=-1, keepdim=True)) / norm
+
+
+def split_bounds(t: int, nsplit: int) -> list[tuple[int, int]]:
+    """K10's query sub-tiles (≙ scripts/attn_bwd_split_bench.py:_split_bounds):
+    ``nsplit`` row ranges of ((t // nsplit) // 16)·16 rows covering [0, t),
+    the last taking the rest.  Raises ``ValueError`` unless t is a multiple
+    of 16 and every sub-tile is non-empty."""
+    if t % 16:
+        raise ValueError(f"the q-sub-tiled backward needs T a multiple of 16, got T={t}")
+    if nsplit < 1 or (t // nsplit) // 16 < 1:
+        raise ValueError(f"nsplit={nsplit} leaves an empty q sub-tile at T={t} "
+                         f"(needs ((T // nsplit) // 16)·16 >= 16)")
+    step = ((t // nsplit) // 16) * 16
+    return [(i * step, (i + 1) * step) for i in range(nsplit - 1)] + [((nsplit - 1) * step, t)]
+
+
+def qknorm_attention_bwd_subtiled_ref(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sqk_eff: torch.Tensor, scale: float,
+    o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, nsplit: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain twin of K10 (≙ scripts/attn_bwd_split_bench.py:_bwd_split_kernel)
+    → (dq, dk, dv in the inputs' dtypes, dsqk [B, H, D] fp32 per (b, h)):
+    K2's twin in its plain-recompute arm (P = exp(S − lse), no clamp), its
+    query rows walked in the ``split_bounds(T, nsplit)`` sub-tiles."""
+    t = _check_operands(q, k, v, sqk_eff)[2]
+    return qknorm_attention_bwd_ref(q, k, v, sqk_eff, scale, o, lse, do, bounds=split_bounds(t, nsplit))
 
 
 def _check_qkv(q, k, v) -> tuple[int, int, int, int]:
@@ -248,6 +290,31 @@ qknorm_attention_fwd.launches_bounded = 0
 qknorm_attention_fwd.launches_auto = 0
 
 
+def _bwd_operands(name: str, q, k, v, sqk_eff, o, lse, do):
+    """Checks and launch operands shared by K2 and K10 → (b, h, t, d, fp32
+    sqk, contiguous lse, aligned do, (dq, dk, dv) as views of ONE bf16
+    [B, T, 3, H, D] buffer, the fp32 dsqk partials [B·H, 2·ceil(T/64), D],
+    the 24 strides)."""
+    b, h, t, d = _check_operands(q, k, v, sqk_eff)
+    _check_cuda_bf16(name, (q, k, v, o, do), d)
+    if o.shape != q.shape or do.shape != q.shape or tuple(lse.shape) != (b, h, t):
+        raise ValueError(f"o/do must be {tuple(q.shape)} and lse {(b, h, t)}, got "
+                         f"{tuple(o.shape)}, {tuple(do.shape)}, {tuple(lse.shape)}")
+    if not (sqk_eff.is_cuda and lse.is_cuda and lse.dtype == torch.float32):
+        raise ValueError(f"{name} takes CUDA sqk_eff and fp32 CUDA lse")
+    if not _aligned(do):
+        do = do.contiguous()
+    buf = torch.empty((b, t, 3, h, d), dtype=torch.bfloat16, device=q.device)
+    grads = tuple(buf[:, :, i].permute(0, 2, 1, 3) for i in range(3))
+    part = torch.empty((b * h, 2 * -(-t // BLOCK), d), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_int64 * 24)(*(
+        st for x, nm in ((q, "q"), (k, "k"), (v, "v"), (o, "o"), (do, "do"),
+                         (grads[0], "dq"), (grads[1], "dk"), (grads[2], "dv"))
+        for st in _launch_strides(x, nm)
+    ))
+    return b, h, t, d, sqk_eff.to(torch.float32).contiguous(), lse.contiguous(), do, grads, part, strides
+
+
 def qknorm_attention_bwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sqk_eff: torch.Tensor, scale: float,
     o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, mode: str = "rowmax",
@@ -261,27 +328,10 @@ def qknorm_attention_bwd(
     from nvit_tpu_torch.ops._build import load_library
 
     _check_mode(mode)
-    b, h, t, d = _check_operands(q, k, v, sqk_eff)
-    _check_cuda_bf16("qknorm_attention_bwd", (q, k, v, o, do), d)
-    if o.shape != q.shape or do.shape != q.shape or tuple(lse.shape) != (b, h, t):
-        raise ValueError(f"o/do must be {tuple(q.shape)} and lse {(b, h, t)}, got "
-                         f"{tuple(o.shape)}, {tuple(do.shape)}, {tuple(lse.shape)}")
-    if not (sqk_eff.is_cuda and lse.is_cuda and lse.dtype == torch.float32):
-        raise ValueError("qknorm_attention_bwd takes CUDA sqk_eff and fp32 CUDA lse")
-    if not _aligned(do):
-        do = do.contiguous()
-    sqk = sqk_eff.to(torch.float32).contiguous()
-    lse = lse.contiguous()
-    grads = torch.empty((b, t, 3, h, d), dtype=torch.bfloat16, device=q.device)
-    dq, dk, dv = (grads[:, :, i].permute(0, 2, 1, 3) for i in range(3))
-    n_tiles = -(-t // BLOCK)
+    b, h, t, d, sqk, lse, do, grads, part, strides = _bwd_operands("qknorm_attention_bwd", q, k, v, sqk_eff,
+                                                                   o, lse, do)
+    dq, dk, dv = grads
     delta = torch.empty((b * h, t), dtype=torch.float32, device=q.device)
-    part = torch.empty((b * h, 2 * n_tiles, d), dtype=torch.float32, device=q.device)
-    strides = (ctypes.c_int64 * 24)(*(
-        st for x, name in ((q, "q"), (k, "k"), (v, "v"), (o, "o"), (do, "do"),
-                           (dq, "dq"), (dk, "dk"), (dv, "dv"))
-        for st in _launch_strides(x, name)
-    ))
     lib = load_library("qknorm_attn_bwd")
     fn = lib.nvit_qknorm_attn_bwd
     fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [
@@ -304,6 +354,54 @@ def qknorm_attention_bwd(
 
 qknorm_attention_bwd.launches = 0
 qknorm_attention_bwd.launches_bounded = 0
+
+
+def qknorm_attention_bwd_subtiled(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sqk_eff: torch.Tensor, scale: float,
+    o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, nsplit: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K10, the q-sub-tiled QK-norm attention backward → (dq, dk, dv,
+    dsqk [B, H, D] fp32 per (b, h)), K2's function with ``o``/``lse`` from a
+    forward in any mode.  CUDA tensors launch the kernel (bf16, head dim 32
+    or 64) or raise, and count the launch in ``.launches``; CPU tensors run
+    ``qknorm_attention_bwd_subtiled_ref`` — chosen by where the tensors lie,
+    nothing else.  T must be a multiple of 16 and every one of the
+    ``nsplit`` sub-tiles non-empty (``split_bounds``)."""
+    if not q.is_cuda:
+        return qknorm_attention_bwd_subtiled_ref(q, k, v, sqk_eff, scale, o, lse, do, nsplit)
+    return _launch_bwd_subtiled(q, k, v, sqk_eff, scale, o, lse, do, nsplit)
+
+
+qknorm_attention_bwd_subtiled.launches = 0
+
+
+def _launch_bwd_subtiled(q, k, v, sqk_eff, scale: float, o, lse, do, nsplit: int):
+    """One launch of K10 (two kernels on one stream) → as
+    ``qknorm_attention_bwd_subtiled``; raises on anything but CUDA operands.
+    dq/dk/dv are views of ONE [B, T, 3, H, D] buffer."""
+    from nvit_tpu_torch.ops._build import load_library
+
+    split_bounds(q.shape[-2], nsplit)
+    b, h, t, d, sqk, lse, do, (dq, dk, dv), part, strides = _bwd_operands(
+        "qknorm_attention_bwd_subtiled", q, k, v, sqk_eff, o, lse, do)
+    # each 64-key tile's share of dq̂, summed over the tiles by the second kernel
+    dq_part = torch.empty((b * h, -(-t // BLOCK), t, d), dtype=torch.float32, device=q.device)
+    fn = load_library("qknorm_attn_bwd").nvit_qknorm_attn_bwd_subtiled
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_int, ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    err = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), sqk.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dq_part.data_ptr(),
+        part.data_ptr(), b, h, t, d, float(scale), int(nsplit), strides,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"qknorm_attn_bwd_subtiled launch failed: cudaError {err}")
+    _count(qknorm_attention_bwd_subtiled, "rowmax")
+    # the per-tile partials summed in a fixed order: deterministic dsqk
+    return dq, dk, dv, part.sum(dim=1).reshape(b, h, d)
 
 
 class FlashQKNormFn(torch.autograd.Function):

@@ -94,7 +94,8 @@ def check_ported(cfg: Config, device: torch.device) -> None:
 
 
 class Trainer:
-    def __init__(self, config: Config, *, device: torch.device | str):
+    def __init__(self, config: Config, *, device: torch.device | str = "cuda"):
+        """Train ``config`` on ``device``: the card unless the caller asks for the CPU."""
         self.cfg = cfg = config
         self.device = torch.device(device)
         check_ported(cfg, self.device)

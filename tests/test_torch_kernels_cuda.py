@@ -1,4 +1,4 @@
-"""Card-only tests: the port's CUDA kernels (K1–K9) against their plain twins,
+"""Card-only tests: the port's CUDA kernels (K1–K10) against their plain twins,
 the autograd Functions' gradients, and one flagship-width Block's backward in
 each mode, with and without a bias and the bounded softmax.
 
@@ -602,3 +602,52 @@ def test_flagship_block_with_bias_backward_matches_plain_path(cuda, monkeypatch,
         assert p.grad is not None and rel_l2(p.grad, r.grad) <= (0.1 if name == "key.bias" else 5e-2), name
         if name != "key.bias":
             assert rel_l2(p.grad, q.grad) <= 5e-2, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,t,d,view,nsplit", [
+    (1, 2, 64, 64, False, 1),    # one chunk, one key tile
+    (2, 3, 112, 32, True, 7),    # seven 16-row sub-tiles, head dim 32
+    (2, 3, 112, 64, True, 2),    # 48 + 64 rows: ragged chunks
+    (1, 2, 784, 64, True, 2),    # the bench's T: 384 + 400 rows
+    (1, 2, 784, 64, True, 7),    # 7 × 112 = 7 × (64 + 48)
+])
+def test_k10_matches_twin_and_is_deterministic(cuda, b, h, t, d, view, nsplit):
+    from nvit_tpu_torch.ops.flash_attention import (
+        qknorm_attention_bwd_subtiled,
+        qknorm_attention_bwd_subtiled_ref,
+        qknorm_attention_fwd,
+    )
+
+    q, k, v, sqk = attn_inputs(b, h, t, d, cuda, seed=t + nsplit, qkv_view=view)
+    do = torch.randn(b, t, h, d, generator=torch.Generator().manual_seed(t)).to(cuda, torch.bfloat16)
+    do = do.permute(0, 2, 1, 3)
+    o, lse = qknorm_attention_fwd(q, k, v, sqk, 8.0, with_lse=True)
+    before = qknorm_attention_bwd_subtiled.launches
+    got = qknorm_attention_bwd_subtiled(q, k, v, sqk, 8.0, o, lse, do, nsplit)
+    again = qknorm_attention_bwd_subtiled(q, k, v, sqk, 8.0, o, lse, do, nsplit)
+    want = qknorm_attention_bwd_subtiled_ref(q, k, v, sqk, 8.0, o, lse, do, nsplit)
+    torch.cuda.synchronize()
+    assert qknorm_attention_bwd_subtiled.launches == before + 2
+    for a, r in zip(got[:3], want[:3]):
+        assert a.shape == q.shape and a.dtype == torch.bfloat16
+        torch.testing.assert_close(a.float(), r.float(), **BF16_TOL)
+        assert rel_l2(a, r) <= 1e-3  # the twin's bf16 rounding points, shared
+    assert got[3].shape == (b, h, d)
+    assert (got[3] - want[3]).abs().max() <= 2e-2 * want[3].abs().max()
+    for a, r in zip(got, again):  # no atomics: the same bytes every call
+        assert torch.equal(a.contiguous().view(torch.uint8), r.contiguous().view(torch.uint8))
+
+
+@pytest.mark.cuda
+def test_k10_rejects_what_it_does_not_take(cuda):
+    from nvit_tpu_torch.ops.flash_attention import qknorm_attention_bwd_subtiled, qknorm_attention_fwd
+
+    q, k, v, sqk = attn_inputs(1, 2, 64, 32, cuda)
+    o, lse = qknorm_attention_fwd(q, k, v, sqk, 8.0, with_lse=True)
+    with pytest.raises(ValueError, match="empty q sub-tile"):
+        qknorm_attention_bwd_subtiled(q, k, v, sqk, 8.0, o, lse, o, 5)
+    q, k, v, sqk = attn_inputs(1, 2, 100, 32, cuda)
+    o, lse = qknorm_attention_fwd(q, k, v, sqk, 8.0, with_lse=True)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        qknorm_attention_bwd_subtiled(q, k, v, sqk, 8.0, o, lse, o, 2)

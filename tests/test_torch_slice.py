@@ -293,7 +293,7 @@ def test_package_imports_no_jax():
         "nvit_tpu_torch.train.trainer, nvit_tpu_torch.train.step, nvit_tpu_torch.train.optim, "
         "nvit_tpu_torch.data.datasets, nvit_tpu_torch.data.pipeline, nvit_tpu_torch.obs.metrics, "
         "nvit_tpu_torch.models.presets, nvit_tpu_torch.models.blocks, nvit_tpu_torch.ops.attention, "
-        "nvit_tpu_torch.ops.flash_attention; "
+        "nvit_tpu_torch.ops.flash_attention, nvit_tpu_torch.scripts.attn_bwd_split_bench; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'nvit_tpu')); "
         "assert not bad, bad"
     )

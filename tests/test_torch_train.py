@@ -338,6 +338,25 @@ def test_trainer_writes_metrics_and_finishes(tmp_path):
     assert trainer.iter_num == 6 and trainer.state.step == 6
 
 
+def test_entry_points_default_to_the_card(tmp_path):
+    """Predictor, Predictor.from_config and Trainer run on the card unless
+    the caller asks for the CPU: built with the default device where there
+    is no card, each fails for want of CUDA instead of making a CPU model."""
+    import inspect
+
+    from nvit_tpu_torch.infer import Predictor
+
+    for fn in (Predictor.__init__, Predictor.from_config, Trainer.__init__):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__
+    if torch.cuda.is_available():
+        return
+    cfg = trainer_config(tmp_path)
+    for build in (lambda: Predictor(ViT(cfg.model, device="cpu"), cfg.model),
+                  lambda: Predictor.from_config(cfg), lambda: Trainer(cfg)):
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+            build()
+
+
 @pytest.mark.parametrize("section,kw,item", [
     ("training", dict(init_from="resume"), "checkpoint files"),
     ("training", dict(eval_only=True), "checkpoint files"),
