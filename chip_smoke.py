@@ -9,9 +9,13 @@ Phases (any failure raises, and the script exits non-zero with no result):
 
 1. device   — card name and power limit, torch/CUDA versions; requires
                compute capability 9.0; TF32 off for matmuls and cuDNN;
-2. build    — compiles the six kernel sources from nvit_tpu_torch/csrc/, one
-               nvcc per source, all started together;
-3. kernels  — K1/K2 (QK-norm flash attention fwd/bwd), K3/K4 (gated MLP
+2. build    — compiles the seven kernel sources from nvit_tpu_torch/csrc/,
+               one nvcc per source, all started together, and prints ptxas's
+               registers, shared memory and spills of the wgmma QK-norm
+               kernels and their projection prologue, which must not spill;
+3. kernels  — K1/K2 (QK-norm flash attention fwd/bwd, on contiguous and
+               strided QKV inputs; K2 and K5's backward bit-equal across two
+               calls), their projection prologue, K3/K4 (gated MLP
                fwd/bwd), K5 (the bounded arm of K1/K2, with the clamp inert
                and firing in whole rows; "auto" on both sides of its gate),
                K6 (K3/K4 with a bias), K7 (flash attention fwd), K8 and K9
@@ -20,7 +24,8 @@ Phases (any failure raises, and the script exits non-zero with no result):
                the autograd Functions' CUDA gradients against autograd through
                the twins; K10 (the q-sub-tiled QK-norm backward) against its
                twin at the bench's shape, nsplit 2 and 7, and a ragged one,
-               and bit-deterministic;
+               and bit-deterministic; the prologue against its twin (one bf16
+               rounding of q̂_s, k̂, k̂_s; lse exact; Δ to fp32 order);
 4. bench    — ``python -m nvit_tpu_torch.scripts.attn_bwd_split_bench``'s
                main() on the card (its 3e-2 asserts against K5's backward
                are not caught): K10's counter must rise by exactly the
@@ -34,9 +39,9 @@ settings.yaml runs it (``flagship_config(bias=True)``), random weights and
 biases from a seed:
 6. serve    — behind InferenceService + make_handler on a local
                ThreadingHTTPServer: /predict at batches 1, 4 and 32, /healthz,
-               /stats; the path's attention forward (K1, or K7) and gated MLP
-               (K3, or K6 with a bias) must launch 13 times per forward and
-               no other kernel; served probabilities against the same weights
+               /stats; the path's attention forward (K1 and its prologue, or
+               K7) and gated MLP (K3, or K6 with a bias) must launch 13 times
+               per forward and no other kernel; served probabilities against the same weights
                on the plain path (flash_attn=False, gated MLP off);
 7. times    — each of the path's kernels against its twin, the unfused chain
                and (attention) PyTorch's fused SDPA, by CUDA events (K9 at
@@ -45,9 +50,9 @@ biases from a seed:
                and plain paths;
 8. train    — training at batch 32, bf16: one make_train_step step launches
                the path's four kernels (K1–K4, K7/K8/K3/K4, or K1/K2/K6) 13
-               times each and no other; loss and per-group gradients (biases
-               and suv included) against the plain path on the same weights
-               and batch; ten steps on one batch lower the loss; step time,
+               times each (nViT's prologue 26 times) and no other; loss
+               and per-group gradients (biases and suv included) against the
+               plain path on the same weights and batch; ten steps on one batch lower the loss; step time,
                img/s, MFU and peak memory on both paths; Trainer.train() on
                synthetic 224 px data (made once and reused by every path)
                writes metrics.jsonl;
@@ -79,6 +84,7 @@ import subprocess
 import sys
 import threading
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -130,27 +136,38 @@ KERNELS = {  # summary name → (source, TPU kernel it replaces)
     "gated_mlp_fwd_bias": ("nvit_tpu_torch/csrc/gated_mlp_fwd.cu", "nvit_tpu/ops/gated_mlp.py:96"),
     "gated_mlp_bwd_bias": ("nvit_tpu_torch/csrc/gated_mlp_bwd.cu", "nvit_tpu/ops/gated_mlp.py:104"),
     "qknorm_attn_bwd_subtiled": ("nvit_tpu_torch/csrc/qknorm_attn_bwd.cu", "scripts/attn_bwd_split_bench.py:65"),
+    # the q/k projection of K1/K2/K5, out of their tile walks: once per call
+    "qknorm_project": ("nvit_tpu_torch/csrc/qknorm_project.cu", "nvit_tpu/ops/flash_attention.py:389"),
 }
+# the wgmma kernels whose ptxas report the build phase prints and holds to 0
+# bytes of spill (mangled-name substrings)
+NO_SPILL = ("qknorm_attn_fwd_kernel", "qknorm_attn_bwd_dkv_kernel", "qknorm_attn_bwd_dq_kernel",
+            "qknorm_project_kernel")
 SOURCES = sorted({Path(src).stem for src, _ in KERNELS.values()})
 # the kernels each path's serving forward and training step launch, 13 times
-# each (12 blocks + the shared cross-attention); every other kernel never.
-# "qknorm_attn_fwd_auto" counts the "auto" launches, whose arm the card picks
+# each (12 blocks + the shared cross-attention) for every time they are
+# listed; every other kernel never.  "qknorm_attn_fwd_auto" counts the "auto"
+# launches, whose arm the card picks; the projection prologue runs before
+# every QK-norm forward and backward
 PATHS = {
-    "nvit": {"forward": ("qknorm_attn_fwd", "gated_mlp_fwd"),
-             "step": ("qknorm_attn_fwd", "qknorm_attn_bwd", "gated_mlp_fwd", "gated_mlp_bwd")},
+    "nvit": {"forward": ("qknorm_attn_fwd", "gated_mlp_fwd", "qknorm_project"),
+             "step": ("qknorm_attn_fwd", "qknorm_attn_bwd", "gated_mlp_fwd", "gated_mlp_bwd", "qknorm_project",
+                      "qknorm_project")},
     "baseline": {"forward": ("flash_attn_fwd", "gated_mlp_fwd"),
                  "step": ("flash_attn_fwd", "flash_attn_bwd_fused", "gated_mlp_fwd", "gated_mlp_bwd")},
-    "nvit-bias": {"forward": ("qknorm_attn_fwd", "gated_mlp_fwd_bias"),
-                  "step": ("qknorm_attn_fwd", "qknorm_attn_bwd", "gated_mlp_fwd_bias", "gated_mlp_bwd_bias")},
+    "nvit-bias": {"forward": ("qknorm_attn_fwd", "gated_mlp_fwd_bias", "qknorm_project"),
+                  "step": ("qknorm_attn_fwd", "qknorm_attn_bwd", "gated_mlp_fwd_bias", "gated_mlp_bwd_bias",
+                           "qknorm_project", "qknorm_project")},
     "baseline-bias": {"forward": ("flash_attn_fwd", "gated_mlp_fwd_bias"),
                       "step": ("flash_attn_fwd", "flash_attn_bwd_fused", "gated_mlp_fwd_bias",
                                "gated_mlp_bwd_bias")},
-    "bounded": {"forward": ("qknorm_attn_fwd_bounded", "gated_mlp_fwd_bias"),
+    "bounded": {"forward": ("qknorm_attn_fwd_bounded", "gated_mlp_fwd_bias", "qknorm_project"),
                 "step": ("qknorm_attn_fwd_bounded", "qknorm_attn_bwd_bounded", "gated_mlp_fwd_bias",
-                         "gated_mlp_bwd_bias")},
+                         "gated_mlp_bwd_bias", "qknorm_project", "qknorm_project")},
     # "auto"'s backward is K2's plain recompute (≙ _bwd_qknorm)
-    "auto": {"forward": ("qknorm_attn_fwd_auto", "gated_mlp_fwd_bias"),
-             "step": ("qknorm_attn_fwd_auto", "qknorm_attn_bwd", "gated_mlp_fwd_bias", "gated_mlp_bwd_bias")},
+    "auto": {"forward": ("qknorm_attn_fwd_auto", "gated_mlp_fwd_bias", "qknorm_project"),
+             "step": ("qknorm_attn_fwd_auto", "qknorm_attn_bwd", "gated_mlp_fwd_bias", "gated_mlp_bwd_bias",
+                      "qknorm_project", "qknorm_project")},
 }
 
 
@@ -187,6 +204,14 @@ def host_ms(fn, iters: int) -> float:
         fn()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def as_bytes(x: torch.Tensor) -> torch.Tensor:
+    return x.contiguous().view(torch.uint8)
+
+
+def bit_equal(a, b) -> bool:
+    return all(torch.equal(as_bytes(x), as_bytes(y)) for x, y in zip(a, b))
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -228,7 +253,13 @@ def launch_counts() -> dict:
             "flash_attn_fwd": (fa.flash_attention_fwd, "launches"),
             "flash_attn_bwd_fused": (fa.attention_bwd_fused, "launches"),
             "flash_attn_bwd_split": (fa.attention_bwd_split, "launches"),
-            "qknorm_attn_bwd_subtiled": (fa.qknorm_attention_bwd_subtiled, "launches")}
+            "qknorm_attn_bwd_subtiled": (fa.qknorm_attention_bwd_subtiled, "launches"),
+            "qknorm_project": (fa.qknorm_project_bf16, "launches")}
+
+
+def per_pass(names, n: int) -> dict:
+    """kernel → n launches for every time ``names`` lists it"""
+    return {name: n * count for name, count in Counter(names).items()}
 
 
 def check_launches(launches: dict, expected: dict, what: str) -> None:
@@ -267,7 +298,7 @@ def device_phase() -> str:
 
 
 def build_phase() -> None:
-    from nvit_tpu_torch.ops._build import build, load_library
+    from nvit_tpu_torch.ops._build import build, load_library, ptxas_report
 
     phase("build")
 
@@ -279,8 +310,17 @@ def build_phase() -> None:
     with ThreadPoolExecutor(len(SOURCES)) as pool:  # one nvcc per source, together
         for name, seconds in pool.map(timed, SOURCES):
             print(f"built {name} in {seconds:.3f} s")
+    seen = set()
     for name in SOURCES:
         load_library(name)
+        for kernel, use in ptxas_report(name).items():
+            keys = [key for key in NO_SPILL if key in kernel]
+            if keys:
+                seen.update(keys)
+                print(f"ptxas {name}: {kernel}: {use}")
+                check(use.get("spill_stores", 1) == 0 and use.get("spill_loads", 1) == 0,
+                      f"{kernel} spills: {use}")
+    check(seen == set(NO_SPILL), f"no ptxas report for {set(NO_SPILL) - seen}")
 
 
 def attn_inputs(b, h, t, d, seed):
@@ -333,14 +373,16 @@ def kernel_phase() -> dict:
     print(f"tolerance: bf16 outputs {KERNEL_TOL}, lse {LSE_TOL}, fp32 dsqk max|Δ| <= "
           f"{DSQK_RTOL} x max|dsqk_ref|")
     errs = {name: 0.0 for name in KERNELS}
-    for b, h, t, d in ((4, 12, 784, 64), (2, 4, 100, 32)):
-        q, k, v, sqk = attn_inputs(b, h, t, d, seed=t)
+    for (b, h, t, d), view in (((4, 12, 784, 64), False), ((2, 4, 100, 32), False),
+                               ((4, 12, 784, 64), True), ((2, 4, 100, 32), True)):
+        q, k, v, sqk = qkv_view_inputs(b, h, t, d, seed=t + 5)[:4] if view else attn_inputs(b, h, t, d, seed=t)
         scale = float(d) ** 0.5
         o, lse = qknorm_attention_fwd(q, k, v, sqk, scale, with_lse=True)
         o_ref, lse_ref = flash_attention_qknorm_ref(q, k, v, sqk, scale)
         torch.cuda.synchronize()
         eo, el = max_err(o, o_ref), max_err(lse, lse_ref)
-        print(f"K1 [B={b}, H={h}, T={t}, D={d}] scale {scale:g}: max|o-o_ref| {eo:.3e}, max|lse-lse_ref| {el:.3e}")
+        print(f"K1 [B={b}, H={h}, T={t}, D={d}]{' strided QKV views' if view else ''} scale {scale:g}: "
+              f"max|o-o_ref| {eo:.3e}, max|lse-lse_ref| {el:.3e}")
         torch.testing.assert_close(o.float(), o_ref.float(), **KERNEL_TOL)
         torch.testing.assert_close(lse, lse_ref, **LSE_TOL)
         errs["qknorm_attn_fwd"] = max(errs["qknorm_attn_fwd"], eo)
@@ -351,7 +393,14 @@ def kernel_phase() -> dict:
         o, lse = qknorm_attention_fwd(q, k, v, sqk, scale, with_lse=True)
         got = qknorm_attention_bwd(q, k, v, sqk, scale, o, lse, do)
         want = qknorm_attention_bwd_ref(q, k, v, sqk, scale, o, lse, do)
+        # no atomics: two calls give the same bytes, K2's and K5's backward alike
+        same = bit_equal(got, qknorm_attention_bwd(q, k, v, sqk, scale, o, lse, do))
+        o_b, lse_b = qknorm_attention_fwd(q, k, v, sqk, scale, with_lse=True, mode="bounded")
+        same_b = bit_equal(*(qknorm_attention_bwd(q, k, v, sqk, scale, o_b, lse_b, do, "bounded")
+                             for _ in range(2)))
         torch.cuda.synchronize()
+        print(f"K2 / K5 backward [B={b}, H={h}, T={t}, D={d}]: two calls bit-equal: {same} / {same_b}")
+        check(same and same_b, "K2 / K5 backward: two calls on the same inputs differ")
         e = [max_err(a, r) for a, r in zip(got, want)]
         dsqk_bound = DSQK_RTOL * want[3].abs().max().item()
         print(f"K2 [B={b}, H={h}, T={t}, D={d}]: max|Δ| dq {e[0]:.3e} dk {e[1]:.3e} dv {e[2]:.3e}, "
@@ -399,7 +448,39 @@ def kernel_phase() -> dict:
     baseline_kernel_checks(errs)
     bias_bounded_kernel_checks(errs)
     subtiled_kernel_checks(errs)
+    project_kernel_checks(errs)
     return errs
+
+
+def project_kernel_checks(errs: dict) -> None:
+    """The projection prologue against its twin at the batch-32 shape and a
+    ragged one (strided QKV views): q̂_s, k̂, k̂_s within one bf16 rounding
+    (both round the same fp32 product once; the fp32 norms' sums run in
+    another order), the padded lse copied exactly, Δ to fp32 order."""
+    from nvit_tpu_torch.ops import flash_attention as fa
+
+    for b, h, t, d in ((32, 12, 784, 64), (2, 4, 100, 32)):
+        q, k, v, sqk, do = qkv_view_inputs(b, h, t, d, seed=t + 30)
+        scale = float(d) ** 0.5
+        o, lse = fa.qknorm_attention_fwd(q, k, v, sqk, scale, with_lse=True)
+        kw = dict(o=o, do=do, lse=lse)
+        got = fa.qknorm_project_bf16(q, k, sqk, scale, **kw)
+        want = fa.qknorm_project_bf16_ref(q, k, sqk, scale, **kw)
+        torch.cuda.synchronize()
+        parts = []
+        for name, a, r in zip(("q̂_s", "k̂", "k̂_s"), got[:3], want[:3]):
+            diff = (a.float() - r.float()).abs()
+            unequal = (a != r).float().mean().item()
+            parts.append(f"{name} max|Δ| {diff.max().item():.3e} ({100 * unequal:.4f}% of values unequal)")
+            check(bool((diff <= r.float().abs() * 2.0 ** -7).all()), f"prologue {name}: more than one bf16 rounding")
+            errs["qknorm_project"] = max(errs["qknorm_project"], diff.max().item())
+        ed = max_err(got[4], want[4])
+        print(f"prologue [B={b}, H={h}, T={t}, D={d}]: {', '.join(parts)}; lse copy exact: "
+              f"{torch.equal(got[3], want[3])}; max|Δ-Δ_ref| {ed:.3e}")
+        check(torch.equal(got[3], want[3]), "prologue: the padded lse differs from the forward's")
+        torch.testing.assert_close(got[4], want[4], **LSE_TOL)
+        del q, k, v, do, o, lse, got, want
+    torch.cuda.empty_cache()
 
 
 def baseline_kernel_checks(errs: dict) -> None:
@@ -586,9 +667,6 @@ def subtiled_kernel_checks(errs: dict) -> None:
     on the same inputs gives the same bytes."""
     from nvit_tpu_torch.ops import flash_attention as fa
 
-    def as_bytes(x):
-        return x.contiguous().view(torch.uint8)
-
     for (b, h, t, d), nsplit in (((32, 12, 784, 64), 2), ((32, 12, 784, 64), 7), ((2, 3, 112, 64), 7)):
         q, k, v, sqk, do = qkv_view_inputs(b, h, t, d, seed=t + nsplit)
         o, lse = fa.qknorm_attention_fwd(q, k, v, sqk, 8.0, with_lse=True)
@@ -599,7 +677,7 @@ def subtiled_kernel_checks(errs: dict) -> None:
         e = [max_err(a, r) for a, r in zip(got, want)]
         rel = [rel_l2(a, r) for a, r in zip(got[:3], want[:3])]
         dsqk_bound = DSQK_RTOL * want[3].abs().max().item()
-        same = all(torch.equal(as_bytes(a), as_bytes(r)) for a, r in zip(got, again))
+        same = bit_equal(got, again)
         print(f"K10 [B={b}, H={h}, T={t}, D={d}] nsplit {nsplit} (sub-tiles {fa.split_bounds(t, nsplit)}): "
               f"max|Δ| dq {e[0]:.3e} dk {e[1]:.3e} dv {e[2]:.3e}, dsqk {e[3]:.3e} (bound {dsqk_bound:.3e}); "
               "rel L2 dq {:.3e} dk {:.3e} dv {:.3e}; two calls bit-equal: {}".format(*rel, same))
@@ -618,7 +696,8 @@ def bench_phase() -> int:
     """The port of scripts/attn_bwd_split_bench.py on the card, in this
     process; its asserts are not caught.  K10's counter rises by exactly the
     bench's K10 calls, K2's and K5's only by its integrated calls, K5's
-    forward once → K10's launches in the bench."""
+    forward once, the projection prologue before each of those → K10's
+    launches in the bench."""
     from nvit_tpu_torch.scripts import attn_bwd_split_bench as bench
 
     phase("bench: python -m nvit_tpu_torch.scripts.attn_bwd_split_bench")
@@ -628,7 +707,8 @@ def bench_phase() -> int:
     calls = result["calls"]
     print(f"launches in the bench: {launches}; the bench's calls: {calls}")
     check_launches(launches, {"qknorm_attn_bwd_subtiled": calls["subtiled"], "qknorm_attn_bwd": calls["rowmax"],
-                              "qknorm_attn_bwd_bounded": calls["integrated"], "qknorm_attn_fwd_bounded": 1},
+                              "qknorm_attn_bwd_bounded": calls["integrated"], "qknorm_attn_fwd_bounded": 1,
+                              "qknorm_project": 1 + calls["rowmax"] + calls["integrated"]},
                    "the bench")
     check(calls["subtiled"] > 0, "the bench launched no K10")
     torch.cuda.empty_cache()
@@ -753,8 +833,7 @@ def serve_phase(title, path, cfg, pred, plain) -> dict:
     check(forwards == 3, f"expected 3 device forwards, /stats counts {forwards}")
     per_forward = 1 + cfg.model.n_layer  # the shared cross-attention + every block
     print(f"launches in the served run: {launches} over {forwards} forwards")
-    check_launches(launches, {name: per_forward * forwards for name in PATHS[path]["forward"]},
-                   f"serving {title}")
+    check_launches(launches, per_pass(PATHS[path]["forward"], per_forward * forwards), f"serving {title}")
 
     for res, b in ((r1, 1), (r4, 4), (r32, 32)):
         labels, probs = np.asarray(res["labels"]), np.asarray(res["probs"])
@@ -806,6 +885,8 @@ def time_phase(cfg, pred, plain) -> dict:
         qknorm_attention_bwd,
         qknorm_attention_bwd_ref,
         qknorm_attention_fwd,
+        qknorm_project_bf16,
+        qknorm_project_bf16_ref,
     )
     from nvit_tpu_torch.ops.gated_mlp import (
         gated_mlp_bwd_duv,
@@ -833,6 +914,14 @@ def time_phase(cfg, pred, plain) -> dict:
           f"flash_attn=False chain {k1_off:.4f} ms, SDPA on projected q/k {k1_lib:.4f} ms")
     times["qknorm_attn_fwd"] = dict(ms=k1, plain_ms=k1_plain, library_ms=k1_lib, **dict(zip(
         ("bound_ms", "bound_by"), bound(4 * b * h * t * t * hd, 4 * b * h * t * hd * 2 + h * hd * 4))))
+    # the prologue alone (inside K1's time above): q, k read, q̂_s, k̂ written;
+    # per value a square, a sum, a divide and two multiplies
+    kp = cuda_ms(lambda: qknorm_project_bf16(q, k, sqk, scale))
+    kp_plain = cuda_ms(lambda: qknorm_project_bf16_ref(q, k, sqk, scale))
+    print(f"projection prologue [B={b}, H={h}, T={t}, D={hd}] (forward's call): kernel {kp:.4f} ms, "
+          f"plain twin {kp_plain:.4f} ms; K1's call without it ~{k1 - kp:.4f} ms")
+    times["qknorm_project"] = dict(ms=kp, plain_ms=kp_plain, library_ms=None, **dict(zip(
+        ("bound_ms", "bound_by"), bound(10 * b * h * t * hd, 4 * b * h * t * hd * 2 + h * hd * 4))))
     del q, k, v, qh, kh
 
     q, k, v, sqk, do = qkv_view_inputs(b, h, t, hd, seed=3)
@@ -884,8 +973,9 @@ def time_phase(cfg, pred, plain) -> dict:
 
 def print_bounds(times: dict) -> None:
     for name, tm in times.items():
+        lib = f", {tm['ms'] / tm['library_ms']:.2f}x the library call" if tm["library_ms"] else ""
         print(f"{name}: bound {tm['bound_ms']:.4f} ms ({tm['bound_by']}), kernel at "
-              f"{100 * tm['bound_ms'] / tm['ms']:.1f}% of it")
+              f"{100 * tm['bound_ms'] / tm['ms']:.1f}% of it{lib}")
 
 
 def forward_latency(cfg, pred, plain) -> None:
@@ -1175,7 +1265,7 @@ def step_launches(cfg, path, state, images, labels) -> dict:
     sync_step(step, state, images, labels)
     launches = read_counts()
     print(f"launches in one training step: {launches}")
-    check_launches(launches, {name: 1 + cfg.model.n_layer for name in PATHS[path]["step"]}, "one training step")
+    check_launches(launches, per_pass(PATHS[path]["step"], 1 + cfg.model.n_layer), "one training step")
     return launches
 
 
@@ -1338,7 +1428,7 @@ def check_phase(title: str, path: str, cfg, grad_groups: dict, *, sqk_factor: fl
     probs = pred.predict_probs(u8)
     forward = read_counts()
     print(f"launches in one batch-32 forward: {forward}")
-    check_launches(forward, {name: 1 + m.n_layer for name in PATHS[path]["forward"]}, f"forward, {title}")
+    check_launches(forward, per_pass(PATHS[path]["forward"], 1 + m.n_layer), f"forward, {title}")
     check(probs.shape == (len(u8), m.num_classes) and np.isfinite(probs).all(), "bad probabilities")
     with torch.inference_mode():
         logits = state.model(images, compute_dtype=torch.bfloat16)

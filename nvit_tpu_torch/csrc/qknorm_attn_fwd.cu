@@ -16,52 +16,62 @@
 //   auto (K5)    bounded for every head when scale·max(sqk_eff²) over ALL
 //                heads is below 20, else rowmax — decided here on the card
 //                from the [H, D] sqk_eff each block reads, so the caller
-//                never waits on the device.  The normalisation is fused: q and k are
-// read once from device memory and projected in fp32 registers, so the
-// projected q̂/k̂ never exist in device memory (the point of the TPU kernel).
+//                never waits on the device.
+// q̂ and k̂ come from the projection prologue (qknorm_project.cu), which
+// rounds them once per call in K1's multiply order; this kernel reads them
+// as bf16 [B·H, T, D] scratch and v through its (batch, head, token) strides.
 //
 // What bounds it on the H100: at the flagship shape (T = 784, D = 64) the
-// two matmuls are 4·T²·D flops per (b, h) against 4·T·D·2 bytes of q/k/v/o —
-// ~400 flops per byte, above the bf16 ridge (~295), so tensor-core throughput
-// and the softmax's exp/max work bound it, not memory.
+// two products are 4·T²·D flops per (b, h) against ~4·T·D·2 bytes — above
+// the bf16 ridge, so the tensor cores and the exp work bound it, not memory.
+// Only wgmma reaches the tensor-core rate, so the design is wgmma's:
 //
-// Design: the TPU kernel holds the whole [T, T] fp32 score tile in VMEM
-// (2.4 MB at T = 784); a block here has 227 KB of shared memory.  So one
-// block takes a 64-row query tile of one (b, h) and loops over 64-key K/V
-// tiles with an ONLINE softmax (running max m and sum l per row, O rescaled
-// by exp(m_old − m_new)).  Four warps each own 16 query rows: scores, softmax
-// and the P·V update are warp-local; only the K/V tile loads are block-wide.
-// Matmuls use the tensor cores through nvcuda::wmma (bf16 16×16×16, fp32
-// accumulate); O accumulates in fp32 shared memory.  wgmma/TMA pipelining is
-// later work.  Ragged T (784 = 12·64 + 16): key columns past T are masked to
-// −inf and their V rows zero-filled; query rows past T are computed on zeros
-// (the 1e-30 floor keeps them finite) and not stored.
+// * One block is one warpgroup (4 warps, 128 threads) and takes 64 query
+//   rows (wgmma's M) of one (b, h), walking 64-key tiles with an online
+//   softmax (running max m and sum l per row, O rescaled by exp(m_old −
+//   m_new)).  K5's arm starts m at the constant bound and never moves it.
+// * S = q̂ k̂ᵀ is four (D = 32: two) m64n64k16 wgmmas from the swizzled q̂ and
+//   k̂ tiles, into 32 fp32 registers a thread.  The softmax runs on those
+//   registers (row max and sum across the quad of lanes that share a row,
+//   exp2 with log2 e folded into one multiply), P is rounded to bf16 in
+//   registers and is the A operand of O += P V (m64nDk16, V read MN-major
+//   from its [key][d] tile).  O accumulates in registers.  S, P and O never
+//   touch shared memory.
+// * K/V tiles come through cp.async in a ring of two stages: tile n + 1 is
+//   in flight while tile n is multiplied.  One barrier per tile.  The copies
+//   are cp.async (16 bytes a thread, zero-filled past T) with the swizzle
+//   applied by hand (hopper.cuh), not TMA: the strided (batch, head, token)
+//   views of the fused QKV buffer and the ragged last tile need no tensor
+//   map, and the build links no libcuda (no -lcuda added to the build).
+// * The projection runs once per call in the prologue, not per tile: the
+//   alternative, each landed q/k tile projected in shared memory, repeats it
+//   ⌈T/64⌉ times and measured slower than the prologue design (PERF.md §6).
 //
-// K5's bounded arm drops the online softmax's row max and rescale: the bound
-// is a constant known before the first tile (one block-wide max over D, or
-// H·D in auto, of values already in L2), so O accumulates with α = 1.
+// Ragged T (784 = 12·64 + 16): the loads zero-fill rows past T; key columns
+// past T are masked (−inf before the max, P = 0 in the bounded arm) on the
+// last tile only; query rows past T are computed on zeros and not stored.
 //
-// Numerics vs the TPU kernel: the same fp32 projection and multiply order;
-// the online rescale rounds P to bf16 relative to the running max instead of
-// the final row max, a difference of at most one bf16 rounding of P.  The
-// bounded arm rounds P against the same bound as the TPU kernel.
+// Numerics vs the TPU kernel: the same q̂/k̂ rounding; the online rescale
+// rounds P to bf16 relative to the running max instead of the final row
+// max, a difference of at most one bf16 rounding of P; exp2 of the folded
+// argument differs from exp by float rounding only.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include "hopper.cuh"
+
+using namespace hopper;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int BLOCK_M = 64;  // query rows per block, 16 per warp
-constexpr int BLOCK_N = 64;  // keys per K/V tile
-constexpr int NUM_WARPS = 4;
-constexpr int NUM_THREADS = NUM_WARPS * 32;
-constexpr float NORM_EPS = 1e-30f;  // ≙ flash_attention.py _NORM_EPS
+constexpr int BLOCK = TILE_ROWS;  // query rows per block, keys per tile
+constexpr int NUM_THREADS = WG_THREADS;
+constexpr int NUM_WARPS = NUM_THREADS / 32;
 constexpr unsigned FULL = 0xffffffffu;
+constexpr float LOG2E = 1.4426950408889634f;
 // softmax stabilizer modes (ops/flash_attention.py MODES)
 constexpr int MODE_ROWMAX = 0;
 constexpr int MODE_BOUNDED = 1;
@@ -83,84 +93,28 @@ __device__ __forceinline__ float block_max_sq(const float* __restrict__ s, int n
   return m;
 }
 
-template <int D>
-struct Smem {
-  // pitches padded off a multiple of 128 bytes against bank conflicts; each
-  // stays a multiple of 16 bytes (vector stores) and of wmma's ldm unit
-  static constexpr int LDH = D + 8;        // bf16 q̂ / k̂ / v rows
-  static constexpr int LDS = BLOCK_N + 4;  // fp32 scores
-  static constexpr int LDP = BLOCK_N + 8;  // bf16 probabilities
-  static constexpr int LDO = D + 4;        // fp32 output accumulator
-  bf16 q[BLOCK_M * LDH];
-  bf16 k[BLOCK_N * LDH];
-  bf16 v[BLOCK_N * LDH];
-  float s[BLOCK_M * LDS];
-  bf16 p[BLOCK_M * LDP];
-  float o[BLOCK_M * LDO];
+// (batch, head, token) element strides of q, k, v and o
+struct Strides {
+  int64_t q[3], k[3], v[3], o[3];
 };
 
-// bf16((s·scale) ⊙ x/max(‖x‖, eps)) for one half row; the other half lives
-// in the neighbouring lane.
+// byte offsets in the block's 1024-aligned dynamic shared memory
 template <int D>
-__device__ __forceinline__ void project_row(uint4* out, const uint4* raw, int half,
-                                            const float* __restrict__ s_vec, float scale) {
-  constexpr int HALF = D / 2;
-  constexpr int VEC = HALF / 8;
-  float x[HALF];
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) {
-    const bf16* e = reinterpret_cast<const bf16*>(&raw[i]);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) x[i * 8 + j] = __bfloat162float(e[j]);
-  }
-  float ss = 0.f;
-#pragma unroll
-  for (int i = 0; i < HALF; ++i) ss += x[i] * x[i];
-  ss += __shfl_xor_sync(FULL, ss, 1);  // the row's other half
-  const float norm = fmaxf(sqrtf(ss), NORM_EPS);
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) {
-    uint4 packed;
-    bf16* e = reinterpret_cast<bf16*>(&packed);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int d = half * HALF + i * 8 + j;
-      e[j] = __float2bfloat16((s_vec[d] * scale) * (x[i * 8 + j] / norm));
-    }
-    out[i] = packed;
-  }
-}
+struct Layout {
+  static constexpr int TILE = BLOCK * D * 2;  // one swizzled 64-row bf16 tile
+  static constexpr int Q = 0;
+  static constexpr int KV = TILE;             // stage s: k̂ at KV + 2·s·TILE, v after it
+  static constexpr int BYTES = KV + 2 * 2 * TILE + 1024;  // + alignment slack
+};
 
-// Block-wide load of rows [row0, row0 + 64) of one head: two threads per row,
-// each holding D/2 values in fp32.  With `project`, writes bf16((s·scale) ⊙
-// x/max(‖x‖, eps)) — the multiply order of _normed_scaled(x, s·scale);
-// otherwise the raw row.  Rows past T are written as zeros.
-template <int D, bool project>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* __restrict__ src, int64_t stride_t,
-                                          int row0, int T, const float* __restrict__ s_vec,
-                                          float scale) {
-  constexpr int HALF = D / 2;
-  constexpr int VEC = HALF / 8;  // uint4 = 8 bf16
-  constexpr int LDH = Smem<D>::LDH;
-  const int r = threadIdx.x >> 1;
-  const int half = threadIdx.x & 1;
-  const int t = row0 + r;
-  uint4 raw[VEC];
-  if (t < T) {
-    const uint4* g = reinterpret_cast<const uint4*>(src + (int64_t)t * stride_t + half * HALF);
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) raw[i] = g[i];
-  } else {
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) raw[i] = make_uint4(0u, 0u, 0u, 0u);
-  }
-  uint4* out = reinterpret_cast<uint4*>(dst + r * LDH + half * HALF);
-  if constexpr (!project) {
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) out[i] = raw[i];
-  } else {
-    project_row<D>(out, raw, half, s_vec, scale);
-  }
+// the quad's max / sum of a value each of its four lanes holds
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(FULL, x, 1));
+  return fmaxf(x, __shfl_xor_sync(FULL, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(FULL, x, 1);
+  return x + __shfl_xor_sync(FULL, x, 2);
 }
 
 template <int D>
@@ -168,18 +122,18 @@ __global__ void __launch_bounds__(NUM_THREADS)
 qknorm_attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, const float* __restrict__ sqk,
                        bf16* __restrict__ o, float* __restrict__ lse, int H, int T, float scale,
-                       int mode, int64_t q_sb, int64_t q_sh, int64_t q_st, int64_t k_sb, int64_t k_sh,
-                       int64_t k_st, int64_t v_sb, int64_t v_sh, int64_t v_st, int64_t o_sb,
-                       int64_t o_sh, int64_t o_st) {
-  using S = Smem<D>;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  S& sm = *reinterpret_cast<S*>(smem_raw);
+                       int mode, Strides st) {
+  using L = Layout<D>;
+  constexpr int ROW = 2 * D;  // bytes per tile row
+  extern __shared__ unsigned char smem_raw[];
   __shared__ float red[NUM_WARPS];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
 
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh % H;
-  const int m0 = blockIdx.x * BLOCK_M;
+  const int m0 = blockIdx.x * BLOCK;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const float* s_vec = sqk + h * D;  // sqk_eff[h]: no [B·H, D] broadcast needed
@@ -188,154 +142,169 @@ qknorm_attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bool bounded = mode == MODE_BOUNDED;
   if (mode == MODE_AUTO) bounded = scale * block_max_sq(sqk, H * D, red) < BOUND_GATE;
   const float bound = bounded ? scale * block_max_sq(s_vec, D, red) : 0.f;
-  const bf16* qb = q + b * q_sb + h * q_sh;
-  const bf16* kb = k + b * k_sb + h * k_sh;
-  const bf16* vb = v + b * v_sb + h * v_sh;
 
-  load_rows<D, true>(sm.q, qb, q_st, m0, T, s_vec, scale);
-  for (int i = threadIdx.x; i < BLOCK_M * S::LDO; i += NUM_THREADS) sm.o[i] = 0.f;
+  const bf16* kb = k + b * st.k[0] + h * st.k[1];
+  const bf16* vb = v + b * st.v[0] + h * st.v[1];
+  const int n_tiles = (T + BLOCK - 1) / BLOCK;
+  load_tile<D>(base + L::Q, q + b * st.q[0] + h * st.q[1], st.q[2], m0, T);
+  load_tile<D>(base + L::KV, kb, st.k[2], 0, T);
+  load_tile<D>(base + L::KV + L::TILE, vb, st.v[2], 0, T);
+  cp_async_commit();
 
-  // softmax state: lanes 2r and 2r+1 share row r of this warp's 16 rows
-  const int r = lane >> 1;
-  const int half = lane & 1;
-  const int row = warp * 16 + r;
-  float m_i = bounded ? bound : -INFINITY;
-  float l_i = 0.f;
-
-  for (int n0 = 0; n0 < T; n0 += BLOCK_N) {
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_rows<D, true>(sm.k, kb, k_st, n0, T, s_vec, 1.0f);
-    load_rows<D, false>(sm.v, vb, v_st, n0, T, nullptr, 1.0f);
-    __syncthreads();
-
-    // S[16 rows, 64 keys] = q̂ k̂ᵀ for this warp
-    {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[D / 16];
+  // this thread's rows r_i = 16·warp + lane/4 + 8·i and its columns
+  // 8·j + c0 + c of every accumulator (hopper.cuh)
+  const int c0 = 2 * (lane & 3);
+  float acc_o[D / 2];
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wmma::load_matrix_sync(a[kk], sm.q + warp * 16 * S::LDH + kk * 16, S::LDH);
-#pragma unroll
-      for (int j = 0; j < BLOCK_N / 16; ++j) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-        wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          // k̂ stored [key][d] row-major = k̂ᵀ [d][key] column-major
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bfr;
-          wmma::load_matrix_sync(bfr, sm.k + j * 16 * S::LDH + kk * 16, S::LDH);
-          wmma::mma_sync(acc, a[kk], bfr, acc);
-        }
-        wmma::store_matrix_sync(sm.s + warp * 16 * S::LDS + j * 16, acc, S::LDS,
-                                wmma::mem_row_major);
-      }
+  for (int i = 0; i < D / 2; ++i) acc_o[i] = 0.f;
+  float m_i[2] = {bounded ? bound : -INFINITY, bounded ? bound : -INFINITY};
+  float l_i[2] = {0.f, 0.f};  // this thread's share of the row sums
+
+  for (int n = 0; n < n_tiles; ++n) {
+    cp_async_wait<0>();  // tile n has landed (the only group in flight)
+    fence_proxy_async();
+    __syncthreads();     // ... for every thread; and tile n − 1's stage is free
+    if (n + 1 < n_tiles) {
+      const uint32_t nxt = base + L::KV + ((n + 1) & 1) * 2 * L::TILE;
+      load_tile<D>(nxt, kb, st.k[2], (n + 1) * BLOCK, T);
+      load_tile<D>(nxt + L::TILE, vb, st.v[2], (n + 1) * BLOCK, T);
     }
-    __syncwarp();
+    cp_async_commit();
+    const uint32_t ks = base + L::KV + (n & 1) * 2 * L::TILE;
+    const uint32_t vs = ks + L::TILE;
 
-    // online softmax over this tile; each lane takes half of its row
+    float s[32];  // S[64 queries, 64 keys] of this tile
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    fence_operands(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(s, smem_desc<ROW>(base + L::Q + kk * 32), smem_desc<ROW>(ks + kk * 32), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(s);
+
+    const int n0 = n * BLOCK;
+    const bool ragged = n0 + BLOCK > T;  // the last tile holds keys past T
     if (bounded) {  // K5: exp(max(s − bound, −60)) against the constant bound, α = 1
-      constexpr int HN = BLOCK_N / 2;
-      const float* srow = sm.s + row * S::LDS + half * HN;
-      bf16* prow = sm.p + row * S::LDP + half * HN;
-      const int kv0 = n0 + half * HN;
-      float psum = 0.f;
 #pragma unroll
-      for (int c = 0; c < HN; ++c) {
-        // columns past T: zero, as the TPU kernel re-zeroes them after the clamp
-        const float pv = kv0 + c < T ? expf(fmaxf(srow[c] - bound, BOUNDED_EXP_FLOOR)) : 0.f;
-        psum += pv;
-        prow[c] = __float2bfloat16(pv);
-      }
-      l_i += psum + __shfl_xor_sync(FULL, psum, 1);
+      for (int j = 0; j < BLOCK / 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const bool live = !ragged || n0 + 8 * j + c0 + c < T;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            float& x = s[4 * j + 2 * i + c];
+            x = live ? exp2f(fmaxf(x - bound, BOUNDED_EXP_FLOOR) * LOG2E) : 0.f;
+            l_i[i] += x;
+          }
+        }
     } else {
-      constexpr int HN = BLOCK_N / 2;
-      const float* srow = sm.s + row * S::LDS + half * HN;
-      bf16* prow = sm.p + row * S::LDP + half * HN;
-      const int kv0 = n0 + half * HN;
-      float mx = -INFINITY;
+      float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-      for (int c = 0; c < HN; ++c) mx = fmaxf(mx, kv0 + c < T ? srow[c] : -INFINITY);
-      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
-      const float m_new = fmaxf(m_i, mx);  // finite: every tile holds ≥ 1 live key
-      const float alpha = expf(m_i - m_new);  // 0 on the first tile
-      float psum = 0.f;
+      for (int j = 0; j < BLOCK / 8; ++j)
 #pragma unroll
-      for (int c = 0; c < HN; ++c) {
-        const float pv = kv0 + c < T ? expf(srow[c] - m_new) : 0.f;
-        psum += pv;
-        prow[c] = __float2bfloat16(pv);
+        for (int c = 0; c < 2; ++c) {
+          const bool live = !ragged || n0 + 8 * j + c0 + c < T;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            float& x = s[4 * j + 2 * i + c];
+            if (!live) x = -INFINITY;
+            mx[i] = fmaxf(mx[i], x);
+          }
+        }
+      float neg[2], alpha[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float m_new = fmaxf(m_i[i], quad_max(mx[i]));  // finite: every tile holds a live key
+        alpha[i] = exp2f((m_i[i] - m_new) * LOG2E);           // 0 on the first tile
+        m_i[i] = m_new;
+        neg[i] = -m_new * LOG2E;
+        l_i[i] *= alpha[i];
       }
-      psum += __shfl_xor_sync(FULL, psum, 1);
-      l_i = l_i * alpha + psum;
-      m_i = m_new;
-      float* orow = sm.o + row * S::LDO + half * (D / 2);
 #pragma unroll
-      for (int d = 0; d < D / 2; ++d) orow[d] *= alpha;
+      for (int j = 0; j < BLOCK / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            float& x = s[4 * j + 2 * i + c];
+            x = exp2f(fmaf(x, LOG2E, neg[i]));
+            l_i[i] += x;
+          }
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          acc_o[4 * j + 2 * i] *= alpha[i];
+          acc_o[4 * j + 2 * i + 1] *= alpha[i];
+        }
     }
-    __syncwarp();
 
-    // O[16 rows, D] += bf16(P) · V
+    // O[64, D] += bf16(P) · V, P from registers
+    uint32_t pa[BLOCK / 16][4];
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, sm.o + warp * 16 * S::LDO + j * 16, S::LDO, wmma::mem_row_major);
+    for (int kk = 0; kk < BLOCK / 16; ++kk) pack_a(pa[kk], s, kk);
+    fence_operands(acc_o);
+    wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BLOCK_N / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vf;
-        wmma::load_matrix_sync(pa, sm.p + warp * 16 * S::LDP + kk * 16, S::LDP);
-        wmma::load_matrix_sync(vf, sm.v + kk * 16 * S::LDH + j * 16, S::LDH);
-        wmma::mma_sync(acc, pa, vf, acc);
-      }
-      wmma::store_matrix_sync(sm.o + warp * 16 * S::LDO + j * 16, acc, S::LDO, wmma::mem_row_major);
-    }
-    __syncwarp();
+    for (int kk = 0; kk < BLOCK / 16; ++kk) wgmma_rs(acc_o, pa[kk], smem_desc<ROW>(vs + kk * 16 * ROW));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(acc_o);
   }
 
-  const int t = m0 + row;
-  if (t < T) {
-    const float* orow = sm.o + row * S::LDO + half * (D / 2);
-    bf16* og = o + b * o_sb + h * o_sh + (int64_t)t * o_st + half * (D / 2);
 #pragma unroll
-    for (int i = 0; i < D / 16; ++i) {  // D/2 values as uint4 stores of 8
-      uint4 packed;
-      bf16* e = reinterpret_cast<bf16*>(&packed);
+  for (int i = 0; i < 2; ++i) {
+    const float l = quad_sum(l_i[i]);
+    const int t = m0 + warp * 16 + (lane >> 2) + 8 * i;
+    if (t < T) {
+      bf16* og = o + b * st.o[0] + h * st.o[1] + (int64_t)t * st.o[2] + c0;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16(orow[i * 8 + j] / l_i);
-      reinterpret_cast<uint4*>(og)[i] = packed;
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(og + 8 * j) =
+            __floats2bfloat162_rn(acc_o[4 * j + 2 * i] / l, acc_o[4 * j + 2 * i + 1] / l);
+      if (lse != nullptr && (lane & 3) == 0) lse[(int64_t)bh * T + t] = m_i[i] + logf(l);
     }
-    if (lse != nullptr && half == 0) lse[(int64_t)bh * T + t] = m_i + logf(l_i);
   }
 }
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* sqk, void* o, void* lse,
-                   int B, int H, int T, float scale, int mode, const int64_t* st,
+                   int B, int H, int T, float scale, int mode, const Strides& st,
                    cudaStream_t stream) {
-  const size_t smem = sizeof(Smem<D>);
+  const int smem = Layout<D>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(qknorm_attn_fwd_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((T + BLOCK_M - 1) / BLOCK_M, B * H);
+  dim3 grid((T + BLOCK - 1) / BLOCK, B * H);
   qknorm_attn_fwd_kernel<D><<<grid, NUM_THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const float*>(sqk), static_cast<bf16*>(o), static_cast<float*>(lse), H, T, scale,
-      mode, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11]);
+      mode, st);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q, k, v: bf16 [B, H, T, D] addressed through (batch, head, token) element
-// strides, last dim contiguous; sqk: fp32 [H, D]; o: bf16, same addressing;
-// lse: fp32 [B·H, T] or null; mode: 0 rowmax (K1), 1 bounded, 2 auto (K5).
+// q, k: q̂ (s·scale) and k̂ (s), bf16, from nvit_qknorm_project; v and o:
+// bf16 [B, H, T, D]; all addressed through (batch, head, token) element
+// strides, last dim contiguous; sqk: fp32 [H, D]; lse: fp32 [B·H, T] or
+// null; mode: 0 rowmax (K1), 1 bounded, 2 auto (K5).
 // strides = {q_sb, q_sh, q_st, k_.., v_.., o_..}.
 extern "C" cudaError_t nvit_qknorm_attn_fwd(const void* q, const void* k, const void* v,
                                             const void* sqk, void* o, void* lse, int B, int H,
                                             int T, int D, float scale, int mode,
                                             const int64_t* strides, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || H <= 0 || T <= 0) return cudaErrorInvalidValue;
   if (mode < MODE_ROWMAX || mode > MODE_AUTO) return cudaErrorInvalidValue;
-  if (D == 64) return launch<64>(q, k, v, sqk, o, lse, B, H, T, scale, mode, strides, s);
-  if (D == 32) return launch<32>(q, k, v, sqk, o, lse, B, H, T, scale, mode, strides, s);
+  Strides st;
+  int64_t* dst[4] = {st.q, st.k, st.v, st.o};
+  for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 3; ++j) dst[i][j] = strides[3 * i + j];
+  if (D == 64) return launch<64>(q, k, v, sqk, o, lse, B, H, T, scale, mode, st, s);
+  if (D == 32) return launch<32>(q, k, v, sqk, o, lse, B, H, T, scale, mode, st, s);
   return cudaErrorInvalidValue;
 }

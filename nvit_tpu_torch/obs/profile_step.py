@@ -31,6 +31,7 @@ TOP = 15  # kernels listed by device time
 GROUPS = {
     "K1/K5 qknorm_attn_fwd": ("qknorm_attn_fwd_kernel",),
     "K2/K5 qknorm_attn_bwd": ("qknorm_attn_bwd_",),
+    "QK-norm projection prologue": ("qknorm_project_kernel",),
     "K3/K6 gated_mlp_fwd": ("gated_mlp_fwd_kernel",),
     "K4/K6 gated_mlp_bwd": ("gated_mlp_bwd_kernel",),
     "K7 flash_attn_fwd": ("flash_attn_fwd_kernel",),

@@ -7,7 +7,9 @@ PyTorch headers are compiled, so a build takes seconds.
 
 The library lands in ``nvit_tpu_torch/_build/`` (listed in ``.gitignore``),
 named by a hash of the sources and flags, so an edited kernel is rebuilt and
-a stale library is never loaded.  ``nvcc`` comes from ``PATH``, else from
+a stale library is never loaded.  Each build keeps ``ptxas -v``'s report
+(registers, shared memory, spills per kernel) beside its library, read by
+``ptxas_report``.  ``nvcc`` comes from ``PATH``, else from
 ``$CUDA_HOME/bin`` (default ``/usr/local/cuda``).  Without ``nvcc``, or when
 the compile fails, ``load_library`` raises: there is no fallback.
 """
@@ -17,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -29,6 +32,7 @@ BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # registers, shared memory and spills per kernel, kept beside the library
 )
 
 _lock = threading.Lock()
@@ -76,8 +80,30 @@ def build(name: str) -> Path:
             f"nvcc failed building {name!r} (exit {proc.returncode}):\n{' '.join(cmd)}\n"
             f"{proc.stdout}{proc.stderr}"
         )
+    out.with_suffix(".ptxas.txt").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)  # atomic: a concurrent process never loads a partial file
     return out
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_PTXAS_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
+_PTXAS_USED = re.compile(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?")
+
+
+def ptxas_report(name: str) -> dict[str, dict[str, int]]:
+    """Per kernel of ``csrc/<name>.cu`` (mangled name) → its ``registers``,
+    static ``smem`` bytes, ``stack`` bytes and ``spill_stores`` /
+    ``spill_loads`` bytes, from ``ptxas -v`` at its build."""
+    report: dict[str, dict[str, int]] = {}
+    kernel = None
+    for line in build(name).with_suffix(".ptxas.txt").read_text().splitlines():
+        if m := _PTXAS_ENTRY.search(line):
+            kernel = report.setdefault(m.group(1), {})
+        elif kernel is not None and (m := _PTXAS_FRAME.search(line)):
+            kernel.update(stack=int(m.group(1)), spill_stores=int(m.group(2)), spill_loads=int(m.group(3)))
+        elif kernel is not None and (m := _PTXAS_USED.search(line)):
+            kernel.update(registers=int(m.group(1)), smem=int(m.group(2) or 0))
+    return report
 
 
 def load_library(name: str) -> ctypes.CDLL:

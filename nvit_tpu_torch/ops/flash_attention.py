@@ -8,8 +8,11 @@ their bounded-softmax arm, chosen by ``mode`` (≙ ``_fwd_qknorm``'s):
 "rowmax" (K1, K2), "bounded" (K5 forward and backward) or "auto" (K5's
 forward for every head while scale·max(sqk_eff²) < 20, else K1's — the card
 decides, so the host never waits — and K2 backward, as ``_bwd_qknorm``).
-The kernels are ``csrc/qknorm_attn_fwd.cu`` and ``csrc/qknorm_attn_bwd.cu``;
-K5's launches are counted apart (``.launches_bounded``, ``.launches_auto``).
+The kernels are ``csrc/qknorm_attn_fwd.cu`` and ``csrc/qknorm_attn_bwd.cu``
+(wgmma, ``csrc/hopper.cuh``), each after the projection prologue
+``csrc/qknorm_project.cu`` (``qknorm_project_bf16``), which rounds q̂/k̂ to
+bf16 once per call; K5's launches are counted apart (``.launches_bounded``,
+``.launches_auto``).
 Past ``FUSED_BWD_MAX_T`` the JAX package projects q̂/k̂ in fp32 and takes the
 plain flash kernels whatever the mode; so does ``flash_attention_qknorm``.
 K10 (``qknorm_attention_bwd_subtiled``, in ``csrc/qknorm_attn_bwd.cu``)
@@ -41,6 +44,7 @@ requires grad) the forward computes no lse and saves nothing.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -62,6 +66,22 @@ def _norm32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def _normed_scaled(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """fp32 ``s ⊙ x/max(‖x‖, eps)``, the multiply order of the TPU kernels."""
     return s * _norm32(x)[0]
+
+
+_PTR, _INT, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_STRIDES = ctypes.POINTER(ctypes.c_int64)
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(lib: str, symbol: str, argtypes: tuple):
+    """The C entry point ``symbol`` of ``csrc/<lib>.cu``, built and typed at
+    first use and kept: the QK-norm wrappers run twice per attention call,
+    so the per-call Python stays small."""
+    from nvit_tpu_torch.ops._build import load_library
+
+    fn = getattr(load_library(lib), symbol)
+    fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+    return fn
 
 
 def _check_mode(mode: str) -> None:
@@ -244,37 +264,107 @@ def _launch_strides(x: torch.Tensor, name: str) -> tuple[int, int, int]:
     return x.stride(0), x.stride(1), x.stride(2)
 
 
+def qknorm_project_bf16_ref(
+    q: torch.Tensor, k: torch.Tensor, sqk_eff: torch.Tensor, scale: float, *,
+    o: torch.Tensor | None = None, do: torch.Tensor | None = None, lse: torch.Tensor | None = None,
+) -> tuple:
+    """Plain twin of the QK-norm kernels' prologue (``csrc/qknorm_project.cu``)
+    → (q̂_s, k̂, k̂_s, lse_pad, Δ_pad), the last three None in the forward's call.
+
+    q̂_s = bf16((s·scale) ⊙ qn), k̂ = bf16(s ⊙ kn) — the TPU kernels' rounding
+    points, K1's multiply order — each [B·H, T, D] contiguous.  Given o, do
+    and lse (the backward's call), also k̂_s = bf16((s·scale) ⊙ kn), and lse
+    and Δ = rowsum(dO ∘ O) in fp32, each [B·H, T_pad] with
+    T_pad = 64·ceil(T/64), zero past T."""
+    b, h, t, d = q.shape
+    s = sqk_eff.float().reshape(1, h, 1, d)
+    flat = lambda x: x.to(torch.bfloat16).reshape(b * h, t, d)  # noqa: E731
+    qs, kh = flat(_normed_scaled(q, s * scale)), flat(_normed_scaled(k, s))
+    if o is None:
+        return qs, kh, None, None, None
+    ks = flat(_normed_scaled(k, s * scale))
+    pad = -(-t // BLOCK) * BLOCK - t
+    stats = [torch.nn.functional.pad(x.float().reshape(b * h, t), (0, pad))
+             for x in (lse, attention_delta(o, do))]
+    return qs, kh, ks, *stats
+
+
+def qknorm_project_bf16(
+    q: torch.Tensor, k: torch.Tensor, sqk_eff: torch.Tensor, scale: float, *,
+    o: torch.Tensor | None = None, do: torch.Tensor | None = None, lse: torch.Tensor | None = None,
+) -> tuple:
+    """The QK-norm kernels' prologue, ``csrc/qknorm_project.cu`` → as
+    ``qknorm_project_bf16_ref``.  It projects q and k once per call, so the
+    attention kernels' tile walks read bf16 q̂/k̂ instead of normalising
+    every key tile again for every query block.  CUDA tensors launch the
+    kernel and count it in ``.launches``; CPU tensors run the twin."""
+    if not q.is_cuda:
+        return qknorm_project_bf16_ref(q, k, sqk_eff, scale, o=o, do=do, lse=lse)
+    b, h, t, d = _check_operands(q, k, k, sqk_eff)
+    _check_cuda_bf16("qknorm_project_bf16", (q, k), d)
+    if not sqk_eff.is_cuda:
+        raise ValueError("qknorm_project_bf16 launches a CUDA kernel: all operands must be CUDA tensors")
+    sqk = sqk_eff.to(torch.float32).contiguous()
+    stats = o is not None
+    if stats and not (do is not None and lse is not None and o.shape == q.shape and do.shape == q.shape
+                      and tuple(lse.shape) == (b, h, t) and lse.dtype == torch.float32):
+        raise ValueError("qknorm_project_bf16: o and do must match q, and lse be fp32 [B, H, T]")
+    scratch = lambda: torch.empty((b * h, t, d), dtype=torch.bfloat16, device=q.device)  # noqa: E731
+    qs, kh = scratch(), scratch()
+    ks = scratch() if stats else None
+    t_pad = -(-t // BLOCK) * BLOCK
+    lse_pad, delta = ((torch.empty((b * h, t_pad), dtype=torch.float32, device=q.device) for _ in range(2))
+                      if stats else (None, None))
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    strides = (ctypes.c_int64 * 12)(
+        *_launch_strides(q, "q"), *_launch_strides(k, "k"),
+        *(_launch_strides(o, "o") if stats else (0, 0, 0)),
+        *(_launch_strides(do, "do") if stats else (0, 0, 0)),
+    )
+    fn = _entry("qknorm_project", "nvit_qknorm_project",
+                (_PTR,) * 11 + (_INT,) * 4 + (_F32, _STRIDES, _PTR))
+    lse = lse.contiguous() if stats else None
+    err = fn(
+        q.data_ptr(), k.data_ptr(), sqk.data_ptr(), qs.data_ptr(), kh.data_ptr(), ptr(ks), ptr(o), ptr(do),
+        ptr(lse), ptr(lse_pad), ptr(delta), b, h, t, d, float(scale), strides,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"qknorm_project launch failed: cudaError {err}")
+    qknorm_project_bf16.launches += 1
+    return qs, kh, ks, lse_pad, delta
+
+
+qknorm_project_bf16.launches = 0
+
+
 def qknorm_attention_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sqk_eff: torch.Tensor, scale: float,
     *, with_lse: bool = False, mode: str = "rowmax",
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """Launch K1 ("rowmax") or K5 ("bounded", "auto") on CUDA tensors →
-    (o [B, H, T, D] bf16, lse [B, H, T] fp32 or None).  o is a [B, H, T, D]
-    view of [B, T, H, D] storage, so merging the heads afterwards costs no
-    copy.  Counts each launch in ``.launches`` (rowmax),
-    ``.launches_bounded`` or ``.launches_auto`` (whose arm the card picks)."""
-    from nvit_tpu_torch.ops._build import load_library
-
+    """Launch K1 ("rowmax") or K5 ("bounded", "auto") on CUDA tensors, after
+    the projection prologue (``qknorm_project_bf16``) → (o [B, H, T, D] bf16,
+    lse [B, H, T] fp32 or None).  o is a [B, H, T, D] view of [B, T, H, D]
+    storage, so merging the heads afterwards costs no copy.  Counts each
+    launch in ``.launches`` (rowmax), ``.launches_bounded`` or
+    ``.launches_auto`` (whose arm the card picks)."""
     _check_mode(mode)
     b, h, t, d = _check_operands(q, k, v, sqk_eff)
     _check_cuda_bf16("qknorm_attention_fwd", (q, k, v), d)
     if not sqk_eff.is_cuda:
         raise ValueError("qknorm_attention_fwd launches a CUDA kernel: all operands must be CUDA tensors")
     sqk = sqk_eff.to(torch.float32).contiguous()
+    # [B·H, T, D] scratch, addressed as [B, H, T, D]
+    qs, kh = (x.view(b, h, t, d) for x in qknorm_project_bf16(q, k, sqk, scale)[:2])
     o = torch.empty((b, t, h, d), dtype=torch.bfloat16, device=q.device).permute(0, 2, 1, 3)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device) if with_lse else None
-    strides = (ctypes.c_int64 * 12)(
-        *_launch_strides(q, "q"), *_launch_strides(k, "k"), *_launch_strides(v, "v"),
-        *_launch_strides(o, "o"),
-    )
-    lib = load_library("qknorm_attn_fwd")
-    fn = lib.nvit_qknorm_attn_fwd
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_int, ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
+    strides = (ctypes.c_int64 * 12)(*(
+        st for x, name in ((qs, "q"), (kh, "k"), (v, "v"), (o, "o")) for st in _launch_strides(x, name)
+    ))
+    fn = _entry("qknorm_attn_fwd", "nvit_qknorm_attn_fwd",
+                (_PTR,) * 6 + (_INT,) * 4 + (_F32, _INT, _STRIDES, _PTR))
     err = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), sqk.data_ptr(), o.data_ptr(),
+        qs.data_ptr(), kh.data_ptr(), v.data_ptr(), sqk.data_ptr(), o.data_ptr(),
         lse.data_ptr() if lse is not None else None,
         b, h, t, d, float(scale), MODES[mode], strides,
         torch.cuda.current_stream(q.device).cuda_stream,
@@ -290,11 +380,12 @@ qknorm_attention_fwd.launches_bounded = 0
 qknorm_attention_fwd.launches_auto = 0
 
 
-def _bwd_operands(name: str, q, k, v, sqk_eff, o, lse, do):
+def _bwd_operands(name: str, q, k, v, sqk_eff, o, lse, do, *, o_strides: bool):
     """Checks and launch operands shared by K2 and K10 → (b, h, t, d, fp32
     sqk, contiguous lse, aligned do, (dq, dk, dv) as views of ONE bf16
     [B, T, 3, H, D] buffer, the fp32 dsqk partials [B·H, 2·ceil(T/64), D],
-    the 24 strides)."""
+    the strides: q, k, v, o (with ``o_strides``: K10 reads o, K2 does not),
+    do, dq, dk, dv)."""
     b, h, t, d = _check_operands(q, k, v, sqk_eff)
     _check_cuda_bf16(name, (q, k, v, o, do), d)
     if o.shape != q.shape or do.shape != q.shape or tuple(lse.shape) != (b, h, t):
@@ -307,11 +398,9 @@ def _bwd_operands(name: str, q, k, v, sqk_eff, o, lse, do):
     buf = torch.empty((b, t, 3, h, d), dtype=torch.bfloat16, device=q.device)
     grads = tuple(buf[:, :, i].permute(0, 2, 1, 3) for i in range(3))
     part = torch.empty((b * h, 2 * -(-t // BLOCK), d), dtype=torch.float32, device=q.device)
-    strides = (ctypes.c_int64 * 24)(*(
-        st for x, nm in ((q, "q"), (k, "k"), (v, "v"), (o, "o"), (do, "do"),
-                         (grads[0], "dq"), (grads[1], "dk"), (grads[2], "dv"))
-        for st in _launch_strides(x, nm)
-    ))
+    views = ((q, "q"), (k, "k"), (v, "v"), *(((o, "o"),) if o_strides else ()), (do, "do"),
+             (grads[0], "dq"), (grads[1], "dk"), (grads[2], "dv"))
+    strides = (ctypes.c_int64 * (3 * len(views)))(*(st for x, nm in views for st in _launch_strides(x, nm)))
     return b, h, t, d, sqk_eff.to(torch.float32).contiguous(), lse.contiguous(), do, grads, part, strides
 
 
@@ -320,29 +409,25 @@ def qknorm_attention_bwd(
     o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, mode: str = "rowmax",
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch K2 ("rowmax", "auto") or K5's backward ("bounded") on CUDA
-    tensors → (dq, dk, dv bf16 [B, H, T, D], dsqk [B, H, D] fp32 per (b, h)).
+    tensors, after the projection prologue (``qknorm_project_bf16``, which
+    also forms Δ) → (dq, dk, dv bf16 [B, H, T, D], dsqk [B, H, D] fp32 per
+    (b, h)).
     dq/dk/dv are views of ONE [B, T, 3, H, D] buffer.  ``o``/``lse`` are the
     forward's (``with_lse=True``) in the same mode; ``do`` may be any view
     with a contiguous head dim.  Counts each launch in ``.launches`` (K2) or
     ``.launches_bounded`` (K5)."""
-    from nvit_tpu_torch.ops._build import load_library
-
     _check_mode(mode)
     b, h, t, d, sqk, lse, do, grads, part, strides = _bwd_operands("qknorm_attention_bwd", q, k, v, sqk_eff,
-                                                                   o, lse, do)
+                                                                   o, lse, do, o_strides=False)
     dq, dk, dv = grads
-    delta = torch.empty((b * h, t), dtype=torch.float32, device=q.device)
-    lib = load_library("qknorm_attn_bwd")
-    fn = lib.nvit_qknorm_attn_bwd
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_int, ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
+    qs, kh, ks, lse_pad, delta = qknorm_project_bf16(q, k, sqk, scale, o=o, do=do, lse=lse)
+    fn = _entry("qknorm_attn_bwd", "nvit_qknorm_attn_bwd",
+                (_PTR,) * 14 + (_INT,) * 4 + (_F32, _INT, _STRIDES, _PTR))
     bounded = mode == "bounded"  # ≙ _bwd_qknorm: "auto" recomputes exp(s − lse)
     err = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), sqk.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
-        part.data_ptr(), b, h, t, d, float(scale), int(bounded), strides,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), sqk.data_ptr(), qs.data_ptr(), kh.data_ptr(),
+        ks.data_ptr(), lse_pad.data_ptr(), delta.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), part.data_ptr(), b, h, t, d, float(scale), int(bounded), strides,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
@@ -383,7 +468,7 @@ def _launch_bwd_subtiled(q, k, v, sqk_eff, scale: float, o, lse, do, nsplit: int
 
     split_bounds(q.shape[-2], nsplit)
     b, h, t, d, sqk, lse, do, (dq, dk, dv), part, strides = _bwd_operands(
-        "qknorm_attention_bwd_subtiled", q, k, v, sqk_eff, o, lse, do)
+        "qknorm_attention_bwd_subtiled", q, k, v, sqk_eff, o, lse, do, o_strides=True)
     # each 64-key tile's share of dq̂, summed over the tiles by the second kernel
     dq_part = torch.empty((b * h, -(-t // BLOCK), t, d), dtype=torch.float32, device=q.device)
     fn = load_library("qknorm_attn_bwd").nvit_qknorm_attn_bwd_subtiled

@@ -17,7 +17,8 @@ histograms, profiling and the NaN sanitizer; Kohonen (``ViT`` raises).  The JAX 
 improvement and ``checkpoint_latest`` at exit whatever the config says;
 this one logs a warning that it does not.  ``jit``, ``compile``,
 ``compilation_cache_dir``, ``clear_cache``, ``backend`` and ``device`` are
-TPU/XLA settings with no PyTorch counterpart and are ignored.
+TPU/XLA settings with no PyTorch counterpart and are ignored, and so is
+``system.use_tqdm``: the JAX trainer's progress bar changes no result.
 """
 
 from __future__ import annotations
@@ -116,6 +117,7 @@ class Trainer:
         self.best_val_loss: float | None = None
         self.early_stopping_counter = 0
         self._eval_count = 0
+        self._sqk_drift_warned = False  # the drift warning is logged once per Trainer
         self.last_metrics: dict[str, float] = {}
         self.metrics_writer: MetricsWriter | None = None
 
@@ -130,6 +132,16 @@ class Trainer:
                          cfg.model.use_nvit, cfg.model.use_kohonen, cfg.data.dataset, self.device)
         self.logger.warning("checkpoint_best and the final checkpoint_latest are not written: "
                             "checkpoint files are not ported yet (ROADMAP.md, 'checkpoint files')")
+        if cfg.system.quick_validation and cfg.training.full_eval_interval == 0:
+            # ≙ nvit_tpu/train/trainer.py:288-299: the reference's evaluate()
+            # always runs the full val pass; here best-model selection and
+            # early stopping only ever see the capped subset
+            self.logger.warning(
+                "quick_validation is on with full_eval_interval=0: every eval "
+                "(incl. best-checkpoint selection) runs on a %d-example subset; "
+                "set training.full_eval_interval=N to run the full val pass "
+                "every Nth eval", cfg.system.quick_validation_size,
+            )
         self._flops_per_iter = estimate_flops_per_iter(cfg.model, n) * cfg.training.batch_size
 
     # ------------------------------------------------------------------ data
@@ -164,8 +176,17 @@ class Trainer:
         leaves = [blk.sqk for blk in model.transformer["h"]] + [model.cross_attention.sqk]
         eff_max = float(torch.stack([x.detach().abs().max() for x in leaves]).max()) * (
             SQK_INIT_VALUE / m.base_scale)
-        return {"scales/sqk_eff_max": eff_max,
-                "scales/attn_bound": float(np.sqrt(m.n_embd // m.n_head)) * eff_max * eff_max}
+        bound = float(np.sqrt(m.n_embd // m.n_head)) * eff_max * eff_max
+        # only the static "bounded" stabilizer degrades under drift: "rowmax"
+        # is exact at any drift and "auto" routes itself to rowmax past its gate
+        if bound > 40.0 and m.bounded_softmax == "bounded" and not self._sqk_drift_warned:
+            self._sqk_drift_warned = True
+            self.logger.warning(
+                "sqk_eff drifted to %.2f (bounded-softmax shift %.1f): rows "
+                "whose max score trails it by >60 degrade to uniform "
+                "attention; switch model.bounded_softmax=rowmax", eff_max, bound,
+            )
+        return {"scales/sqk_eff_max": eff_max, "scales/attn_bound": bound}
 
     # ----------------------------------------------------------------- train
     def train(self) -> None:

@@ -317,3 +317,38 @@ def test_fused_qkv_gradient_is_k2s_buffer_without_a_copy():
     separate = [g.contiguous() for g in grads]  # the CPU twin's gradients
     fused, *_ = SplitFusedHeads.backward(ctx, *separate)
     assert fused.data_ptr() != buf.data_ptr() and torch.equal(fused, want)
+
+
+# ------------------------------------------------------- projection prologue
+@pytest.mark.parametrize("t", [64, 100])
+def test_projection_prologue_twin_matches_jax_normed_scaled(t):
+    """The prologue's twin rounds the JAX kernels' fp32 projection
+    (flash_attention.py:_normed_scaled, x̂ = s ⊙ x/max(‖x‖, eps)) to bf16
+    once; the backward's call adds k̂_s, Δ = rowsum(dO ∘ O) and lse, padded
+    with zeros to whole 64-row tiles.  On CPU tensors the wrapper is the twin."""
+    from nvit_tpu.ops.flash_attention import _normed_scaled as jax_normed_scaled
+    from nvit_tpu_torch.ops.flash_attention import qknorm_project_bf16, qknorm_project_bf16_ref
+
+    q, k, v, sqk = qkv_inputs(40 + t, t=t)
+    o, do = (np.random.default_rng(t).standard_normal(q.shape).astype(np.float32) for _ in range(2))
+    lse = np.random.default_rng(t + 1).standard_normal(q.shape[:3]).astype(np.float32)
+    scale = float(np.sqrt(32))
+    s = jnp.asarray(sqk)[None, :, None, :]
+    qb, kb = (to_jax(x, jnp.bfloat16) for x in (q, k))
+    want = [np.asarray(jax_normed_scaled(x, sx)[0].astype(jnp.bfloat16).astype(jnp.float32)).reshape(-1, t, 32)
+            for x, sx in ((qb, s * scale), (kb, s), (kb, s * scale))]
+    args = [to_torch(x, torch.bfloat16) for x in (q, k)] + [torch.from_numpy(sqk), scale]
+    stats = dict(o=to_torch(o, torch.bfloat16), do=to_torch(do, torch.bfloat16), lse=torch.from_numpy(lse))
+    got = qknorm_project_bf16(*args, **stats)
+    assert [x.dtype for x in got[:3]] == [torch.bfloat16] * 3
+    for g, w in zip(got[:3], want):
+        np.testing.assert_array_equal(as_np(g), w)
+    t_pad = -(-t // 64) * 64
+    lse_pad, delta = (as_np(x).reshape(2, 2, t_pad) for x in got[3:])
+    np.testing.assert_array_equal(lse_pad[..., :t], lse)
+    ob, dob = (as_np(stats[n]) for n in ("o", "do"))
+    np.testing.assert_allclose(delta[..., :t], np.sum(ob * dob, axis=-1), rtol=1e-5, atol=1e-5)
+    assert not lse_pad[..., t:].any() and not delta[..., t:].any()
+    fwd = qknorm_project_bf16_ref(*args)  # the forward's call: q̂_s and k̂ only
+    assert fwd[2:] == (None, None, None)
+    assert all(torch.equal(a, b) for a, b in zip(fwd[:2], got[:2]))

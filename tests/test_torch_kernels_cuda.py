@@ -1,4 +1,5 @@
-"""Card-only tests: the port's CUDA kernels (K1–K10) against their plain twins,
+"""Card-only tests: the port's CUDA kernels (K1–K10 and the QK-norm projection
+prologue) against their plain twins, K2/K5/K10 bit-deterministic,
 the autograd Functions' gradients, and one flagship-width Block's backward in
 each mode, with and without a bias and the bounded softmax.
 
@@ -651,3 +652,52 @@ def test_k10_rejects_what_it_does_not_take(cuda):
     o, lse = qknorm_attention_fwd(q, k, v, sqk, 8.0, with_lse=True)
     with pytest.raises(ValueError, match="multiple of 16"):
         qknorm_attention_bwd_subtiled(q, k, v, sqk, 8.0, o, lse, o, 2)
+
+
+def as_bytes(x):
+    return x.contiguous().view(torch.uint8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["rowmax", "bounded"])
+@pytest.mark.parametrize("b,h,t,d", [(4, 12, 784, 64), (2, 4, 100, 32)])
+def test_k2_and_k5_backward_are_deterministic(cuda, b, h, t, d, mode):
+    """No atomics in K2 or K5's backward: two calls give the same bytes."""
+    from nvit_tpu_torch.ops.flash_attention import qknorm_attention_bwd, qknorm_attention_fwd
+
+    q, k, v, sqk = attn_inputs(b, h, t, d, cuda, seed=t + 3, qkv_view=True)
+    do = torch.randn(b, t, h, d, generator=torch.Generator().manual_seed(t)).to(cuda, torch.bfloat16)
+    do = do.permute(0, 2, 1, 3)
+    o, lse = qknorm_attention_fwd(q, k, v, sqk, float(d) ** 0.5, with_lse=True, mode=mode)
+    got, again = (qknorm_attention_bwd(q, k, v, sqk, float(d) ** 0.5, o, lse, do, mode) for _ in range(2))
+    torch.cuda.synchronize()
+    for a, r in zip(got, again):
+        assert torch.equal(as_bytes(a), as_bytes(r))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,t,d", [(4, 12, 784, 64), (2, 4, 100, 32)])
+def test_projection_prologue_matches_twin(cuda, b, h, t, d):
+    """The prologue against its twin, q/k as strided QKV views: q̂_s, k̂, k̂_s
+    within one bf16 rounding (the fp32 norms sum in another order), the
+    padded lse exact, Δ to fp32 order; its launches counted."""
+    from nvit_tpu_torch.ops.flash_attention import (
+        qknorm_attention_fwd,
+        qknorm_project_bf16,
+        qknorm_project_bf16_ref,
+    )
+
+    q, k, v, sqk = attn_inputs(b, h, t, d, cuda, seed=t + 4, qkv_view=True)
+    do = torch.randn(b, h, t, d, generator=torch.Generator().manual_seed(t)).to(cuda, torch.bfloat16)
+    scale = float(d) ** 0.5
+    before = qknorm_project_bf16.launches
+    o, lse = qknorm_attention_fwd(q, k, v, sqk, scale, with_lse=True)
+    got = qknorm_project_bf16(q, k, sqk, scale, o=o, do=do, lse=lse)
+    want = qknorm_project_bf16_ref(q, k, sqk, scale, o=o, do=do, lse=lse)
+    torch.cuda.synchronize()
+    assert qknorm_project_bf16.launches == before + 2
+    for a, r in zip(got[:3], want[:3]):
+        assert a.shape == (b * h, t, d) and a.dtype == torch.bfloat16
+        assert bool(((a.float() - r.float()).abs() <= r.float().abs() * 2.0 ** -7).all())
+    assert torch.equal(got[3], want[3])
+    torch.testing.assert_close(got[4], want[4], rtol=1e-4, atol=1e-4)

@@ -382,3 +382,50 @@ def test_unported_datasets_raise(tmp_path, name):
 
     with pytest.raises(NotImplementedError, match="datasets and the data pipeline"):
         load_dataset(name, tmp_path)
+
+
+# ------------------------------------------------- the JAX trainer's warnings
+@pytest.fixture
+def port_log(caplog):
+    """caplog on the port's logger: ``setup_logging`` resets the root
+    logger's handlers (caplog's among them), not the named logger's."""
+    import logging
+
+    logger = logging.getLogger("nvit_tpu_torch")
+    logger.addHandler(caplog.handler)
+    yield caplog
+    logger.removeHandler(caplog.handler)
+
+
+def drift_warnings(log) -> list:
+    return [r for r in log.records if "sqk_eff drifted" in r.getMessage()]
+
+
+@pytest.mark.parametrize("mode,warned", [("bounded", 1), ("rowmax", 0), ("auto", 0)])
+def test_sqk_drift_warns_once_under_bounded_only(tmp_path, port_log, mode, warned):
+    """≙ nvit_tpu/train/trainer.py:395-405: the bound past 40 is logged once
+    per Trainer, and only under the static "bounded" stabilizer."""
+    trainer = Trainer(trainer_config(tmp_path, model=dict(bounded_softmax=mode)), device="cpu")
+    first = trainer._sqk_drift_metrics()
+    with torch.no_grad():  # scale every sqk so that the bound passes 40
+        factor = float(np.sqrt(2 * 40.0 / first["scales/attn_bound"]))
+        for name, p in trainer.state.model.named_parameters():
+            if name.endswith("sqk"):
+                p.mul_(factor)
+    port_log.clear()
+    metrics = [trainer._sqk_drift_metrics() for _ in range(2)]
+    assert all(m["scales/attn_bound"] > 40.0 for m in metrics)
+    assert len(drift_warnings(port_log)) == warned
+    if warned:
+        assert f"{metrics[0]['scales/sqk_eff_max']:.2f}" in drift_warnings(port_log)[0].getMessage()
+
+
+def test_quick_validation_without_full_eval_warns_at_construction(tmp_path, port_log):
+    """≙ nvit_tpu/train/trainer.py:288-299."""
+    Trainer(trainer_config(tmp_path, system=dict(quick_validation=True),
+                           training=dict(full_eval_interval=0)), device="cpu")
+    assert any("quick_validation is on with full_eval_interval=0" in r.getMessage()
+               for r in port_log.records)
+    port_log.clear()
+    Trainer(trainer_config(tmp_path, training=dict(full_eval_interval=2)), device="cpu")
+    assert not any("quick_validation" in r.getMessage() for r in port_log.records)
