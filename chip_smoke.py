@@ -11,16 +11,20 @@ Phases (any failure raises, and the script exits non-zero with no result):
                compute capability 9.0; TF32 off for matmuls and cuDNN;
 2. build    — compiles the seven kernel sources from nvit_tpu_torch/csrc/,
                one nvcc per source, all started together, and prints ptxas's
-               registers, shared memory and spills of the wgmma QK-norm
-               kernels and their projection prologue, which must not spill;
+               registers, shared memory and spills of the wgmma attention
+               kernels (K1/K2/K5 and K7/K8/K9, on the tile loops of
+               attn_fwd.cuh and attn_bwd.cuh) and their projection
+               prologues, which must not spill;
 3. kernels  — K1/K2 (QK-norm flash attention fwd/bwd, on contiguous and
                strided QKV inputs; K2 and K5's backward bit-equal across two
                calls), their projection prologue, K3/K4 (gated MLP
                fwd/bwd), K5 (the bounded arm of K1/K2, with the clamp inert
                and firing in whole rows; "auto" on both sides of its gate),
                K6 (K3/K4 with a bias), K7 (flash attention fwd), K8 and K9
-               (its fused and split backward, one source) against their plain
-               PyTorch twins at the main paths' shapes and at ragged ones, and
+               (its fused and split backward, one source; below one tile too;
+               bit-equal across two calls; their prologue against its twin)
+               against their plain PyTorch twins at the main paths' shapes
+               and at ragged ones, and
                the autograd Functions' CUDA gradients against autograd through
                the twins; K10 (the q-sub-tiled QK-norm backward) against its
                twin at the bench's shape, nsplit 2 and 7, and a ragged one,
@@ -50,7 +54,8 @@ biases from a seed:
                and plain paths;
 8. train    — training at batch 32, bf16: one make_train_step step launches
                the path's four kernels (K1–K4, K7/K8/K3/K4, or K1/K2/K6) 13
-               times each (nViT's prologue 26 times) and no other; loss
+               times each (nViT's prologue 26 times, the baseline's 13) and
+               no other; loss
                and per-group gradients (biases and suv included) against the
                plain path on the same weights and batch; ten steps on one batch lower the loss; step time,
                img/s, MFU and peak memory on both paths; Trainer.train() on
@@ -138,29 +143,33 @@ KERNELS = {  # summary name → (source, TPU kernel it replaces)
     "qknorm_attn_bwd_subtiled": ("nvit_tpu_torch/csrc/qknorm_attn_bwd.cu", "scripts/attn_bwd_split_bench.py:65"),
     # the q/k projection of K1/K2/K5, out of their tile walks: once per call
     "qknorm_project": ("nvit_tpu_torch/csrc/qknorm_project.cu", "nvit_tpu/ops/flash_attention.py:389"),
+    # K8/K9's q·scale and k·scale fold (and K8's Δ), out of their tile walks
+    "flash_project": ("nvit_tpu_torch/csrc/qknorm_project.cu", "nvit_tpu/ops/flash_attention.py:214"),
 }
 # the wgmma kernels whose ptxas report the build phase prints and holds to 0
 # bytes of spill (mangled-name substrings)
 NO_SPILL = ("qknorm_attn_fwd_kernel", "qknorm_attn_bwd_dkv_kernel", "qknorm_attn_bwd_dq_kernel",
-            "qknorm_project_kernel")
+            "qknorm_project_kernel", "flash_attn_fwd_kernel", "flash_attn_bwd_dkv_kernel",
+            "flash_attn_bwd_dq_kernel", "flash_project_kernel")
 SOURCES = sorted({Path(src).stem for src, _ in KERNELS.values()})
 # the kernels each path's serving forward and training step launch, 13 times
 # each (12 blocks + the shared cross-attention) for every time they are
 # listed; every other kernel never.  "qknorm_attn_fwd_auto" counts the "auto"
 # launches, whose arm the card picks; the projection prologue runs before
-# every QK-norm forward and backward
+# every QK-norm forward and backward, its plain mode before every K8/K9
 PATHS = {
     "nvit": {"forward": ("qknorm_attn_fwd", "gated_mlp_fwd", "qknorm_project"),
              "step": ("qknorm_attn_fwd", "qknorm_attn_bwd", "gated_mlp_fwd", "gated_mlp_bwd", "qknorm_project",
                       "qknorm_project")},
     "baseline": {"forward": ("flash_attn_fwd", "gated_mlp_fwd"),
-                 "step": ("flash_attn_fwd", "flash_attn_bwd_fused", "gated_mlp_fwd", "gated_mlp_bwd")},
+                 "step": ("flash_attn_fwd", "flash_attn_bwd_fused", "gated_mlp_fwd", "gated_mlp_bwd",
+                          "flash_project")},
     "nvit-bias": {"forward": ("qknorm_attn_fwd", "gated_mlp_fwd_bias", "qknorm_project"),
                   "step": ("qknorm_attn_fwd", "qknorm_attn_bwd", "gated_mlp_fwd_bias", "gated_mlp_bwd_bias",
                            "qknorm_project", "qknorm_project")},
     "baseline-bias": {"forward": ("flash_attn_fwd", "gated_mlp_fwd_bias"),
                       "step": ("flash_attn_fwd", "flash_attn_bwd_fused", "gated_mlp_fwd_bias",
-                               "gated_mlp_bwd_bias")},
+                               "gated_mlp_bwd_bias", "flash_project")},
     "bounded": {"forward": ("qknorm_attn_fwd_bounded", "gated_mlp_fwd_bias", "qknorm_project"),
                 "step": ("qknorm_attn_fwd_bounded", "qknorm_attn_bwd_bounded", "gated_mlp_fwd_bias",
                          "gated_mlp_bwd_bias", "qknorm_project", "qknorm_project")},
@@ -254,7 +263,8 @@ def launch_counts() -> dict:
             "flash_attn_bwd_fused": (fa.attention_bwd_fused, "launches"),
             "flash_attn_bwd_split": (fa.attention_bwd_split, "launches"),
             "qknorm_attn_bwd_subtiled": (fa.qknorm_attention_bwd_subtiled, "launches"),
-            "qknorm_project": (fa.qknorm_project_bf16, "launches")}
+            "qknorm_project": (fa.qknorm_project_bf16, "launches"),
+            "flash_project": (fa.flash_project_bf16, "launches")}
 
 
 def per_pass(names, n: int) -> dict:
@@ -485,10 +495,12 @@ def project_kernel_checks(errs: dict) -> None:
 
 def baseline_kernel_checks(errs: dict) -> None:
     """K7, K8 and K9 against their twins (q/k/v as views of a fused QKV
-    buffer, as a Block makes them), and FlashAttnFn's CUDA gradients."""
+    buffer, as a Block makes them), K8 and K9 bit-equal across two calls,
+    their prologue against its twin, and FlashAttnFn's CUDA gradients."""
     from nvit_tpu_torch.ops import flash_attention as fa
 
-    for b, h, t, d in ((4, 12, 784, 64), (2, 4, 100, 32)):  # the flagship; ragged T, head dim 32
+    # the flagship; ragged T, head dim 32; below one tile (one ragged tile in the ring)
+    for b, h, t, d in ((4, 12, 784, 64), (2, 4, 100, 32), (1, 2, 40, 64)):
         q, k, v, _, do = qkv_view_inputs(b, h, t, d, seed=t + 2)
         scale = 1.0 / float(d) ** 0.5
         o, lse = fa.flash_attention_fwd(q, k, v, scale, with_lse=True)
@@ -506,6 +518,27 @@ def baseline_kernel_checks(errs: dict) -> None:
             torch.testing.assert_close(a.float(), r.float(), **KERNEL_TOL)
         errs["flash_attn_fwd"] = max(errs.get("flash_attn_fwd", 0.0), eo)
         errs["flash_attn_bwd_fused"] = max(errs.get("flash_attn_bwd_fused", 0.0), *e)
+        # no atomics: two calls give the same bytes, K8's and K9's alike
+        delta = fa.attention_delta(o, do)
+        same = bit_equal(got, fa.attention_bwd_fused(q, k, v, o, lse, do, scale))
+        same_split = bit_equal(*(fa.attention_bwd_split(q, k, v, do, lse, delta, scale) for _ in range(2)))
+        torch.cuda.synchronize()
+        print(f"K8 / K9 [B={b}, H={h}, T={t}, D={d}]: two calls bit-equal: {same} / {same_split}")
+        check(same and same_split, "K8 / K9: two calls on the same inputs differ")
+        # their prologue: qs, ks bit-equal to the twin's (one rounding of the
+        # same product), lse copied exactly, Δ to fp32 order or copied (K9)
+        for kw in (dict(o=o, do=do), dict(delta=delta)):
+            pro = fa.flash_project_bf16(q, k, scale, lse=lse, **kw)
+            pro_ref = fa.flash_project_bf16_ref(q, k, scale, lse=lse, **kw)
+            torch.cuda.synchronize()
+            exact = [(a is None) == (r is None) and (a is None or bit_equal([a], [r]))
+                     for a, r in zip(pro[:3], pro_ref[:3])]
+            ed = max_err(pro[3], pro_ref[3])
+            print(f"backward prologue ({'K9' if 'delta' in kw else 'K8'}) [B={b}, H={h}, T={t}, D={d}]: "
+                  f"qs, ks, lse bit-equal {exact}; max|Δ-Δ_ref| {ed:.3e}")
+            check(all(exact), "backward prologue: qs, ks or lse differ from the twin's")
+            torch.testing.assert_close(pro[3], pro_ref[3], **LSE_TOL)
+            errs["flash_project"] = max(errs["flash_project"], ed)
 
     # K9 where the JAX package takes it (T_pad > 1024), and ragged at head dim 32
     for b, h, t, d in ((2, 12, 1100, 64), (2, 4, 1100, 32)):
@@ -1049,6 +1082,17 @@ def baseline_time_phase(cfg, pred, plain) -> dict:
           f"of 5), flash_attn=False autograd backward {k8[2]:.4f} ms (median of 5), SDPA backward {k8[3]:.4f} ms")
     times["flash_attn_bwd_fused"] = dict(ms=k8[0], plain_ms=k8[1], library_ms=k8[3], **dict(zip(
         ("bound_ms", "bound_by"), bound(10 * b * h * t * t * hd, 8 * b * h * t * hd * 2 + b * h * t * 4))))
+    # the backward's prologue alone (inside K8's time above): q, k, o, dO and
+    # lse read, qs, ks and the padded lse and Δ written; per value two
+    # multiplies and a product summed into Δ
+    kp = cuda_ms(lambda: fa.flash_project_bf16(q, k, scale, lse=lse, o=o, do=do))
+    kp_plain = cuda_ms(lambda: fa.flash_project_bf16_ref(q, k, scale, lse=lse, o=o, do=do))
+    print(f"backward prologue [B={b}, H={h}, T={t}, D={hd}] (K8's call): kernel {kp:.4f} ms, plain twin "
+          f"{kp_plain:.4f} ms; K8's call without it ~{k8[0] - kp:.4f} ms")
+    t_pad = -(-t // fa.BLOCK) * fa.BLOCK
+    times["flash_project"] = dict(ms=kp, plain_ms=kp_plain, library_ms=None, **dict(zip(
+        ("bound_ms", "bound_by"),
+        bound(4 * b * h * t * hd, 6 * b * h * t * hd * 2 + b * h * t * 4 + 2 * b * h * t_pad * 4))))
     del q, k, v, do, o, lse
 
     t = 1100

@@ -21,35 +21,22 @@
 // q̂_s, k̂ and k̂_s come from the projection prologue (qknorm_project.cu) in
 // exactly K1's multiply order, so S and P reproduce the forward softmax.
 //
-// What bounds it on the H100: seven T×T×D products per (b, h) in this
-// design (five in the function), against ~8·T·D bf16 values of traffic —
-// far above the bf16 ridge: the tensor cores and the exp/ALU work of the
-// [T, T] tiles bound it, not memory.  Only wgmma reaches the tensor-core
-// rate.
-//
-// Design: the TPU kernel is ONE program per (b, h) holding whole [T, T] fp32
-// s, p, dp and ds tiles in VMEM (2.4 MB each at T = 784); a Hopper block has
-// 227 KB of shared memory.  So the math is ported on FlashAttention-2's
-// backward structure, in three launches on one stream, all deterministic:
+// What bounds it on the H100 (the tensor cores and the exp/ALU work of the
+// [T, T] tiles, not memory) and the design that answers it are the backward
+// walks of attn_bwd.cuh, shared with K8/K9 (flash_attn_bwd.cu): three
+// launches on one stream, all deterministic:
 //
 // 1. the prologue (qknorm_project.cu) — q̂_s, k̂, k̂_s once per call as bf16
 //    scratch, Δ = Σ_d dO·O in fp32 and lse, both padded to whole 64-row tiles.
-// 2. dK/dV — one block (one warpgroup) per (b·h, 64-key tile).  k̂ and v stay
-//    in shared memory; each 64-query tile's q̂_s, dO, lse and Δ come through
-//    a two-stage cp.async ring.  Sᵀ = k̂ q̂_sᵀ and dPᵀ = v dOᵀ are m64n64k16
-//    wgmmas into registers; Pᵀ and dSᵀ are formed there, rounded to bf16 in
-//    registers and are the A operands of dV += Pᵀ dO and dk̂ += dSᵀ q̂_s, whose
-//    B operand is the query tile read MN-major (no transposed copy).  dV and
-//    dk̂ accumulate in registers across the walk.  The epilogue applies the
-//    justnorm VJP to dk̂ and writes this tile's Σ_t dk̂ ⊙ kn.
+// 2. dK/dV — one block (one warpgroup) per (b·h, 64-key tile): the walk with
+//    K = k̂ and Q = q̂_s on wgmma, dV and dk̂ in registers.  The epilogue
+//    applies the justnorm VJP to dk̂ and writes this tile's Σ_t dk̂ ⊙ kn.
 // 3. dQ — one block per (b·h, 64-query tile), walking the key tiles (k̂, k̂_s,
-//    v) the same way, query-major, accumulating dq̂ in registers; its
-//    epilogue applies the VJP to dq̂ and writes the tile's Σ_t dq̂ ⊙ qn.
+//    v), dq̂ in registers; its epilogue applies the VJP to dq̂ and writes the
+//    tile's Σ_t dq̂ ⊙ qn.
 // The per-tile dsqk partials go to a [B·H, 2·n_tiles, D] fp32 buffer that
-// the wrapper sums in a fixed order — no atomics anywhere.  The dK/dV and dQ
-// passes each recompute S and dP (7 products instead of 5): the price of
-// keeping dq out of atomics.  Sᵀ, dPᵀ, Pᵀ, dSᵀ, dV and dk̂ never touch shared
-// memory; only the epilogues stage fp32 rows there for the row-wise VJP.
+// the wrapper sums in a fixed order — no atomics anywhere.  Only the
+// epilogues stage fp32 rows in shared memory, for the row-wise VJP.
 //
 // K10 (nvit_qknorm_attn_bwd_subtiled) replaces scripts/attn_bwd_split_bench.py::
 // _bwd_split_kernel: K2's function in its plain-recompute arm, restructured on
@@ -77,7 +64,7 @@
 // read once (0.93 GiB at [384, 784, 64], ~0.6 ms of traffic at 3.35 TB/s).
 //
 // K10's kernels keep nvcuda::wmma with every intermediate in shared memory;
-// K2's above are the wgmma redesign (hopper.cuh).
+// K2's above run on the wgmma walks (attn_bwd.cuh, hopper.cuh).
 //
 // Ragged T (784 = 12·64 + 16): query columns past T get P = 0 (their dO and
 // Δ rows are zero too); key rows past T are computed on zero-filled k/v (the
@@ -86,31 +73,17 @@
 // token) strides with a contiguous head dim, so q/k/v can stay views of the
 // fused QKV projection and dq/dk/dv can land in one [B, T, 3, H, D] buffer.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <mma.h>
-#include <stdint.h>
 
-#include "hopper.cuh"
+#include "attn_bwd.cuh"
 
 using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int BLOCK = 64;  // rows per tile, queries or keys
-constexpr int NUM_WARPS = 4;
-constexpr int NUM_THREADS = NUM_WARPS * 32;
-constexpr float NORM_EPS = 1e-30f;  // ≙ flash_attention.py _NORM_EPS
-constexpr unsigned FULL = 0xffffffffu;
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float BOUNDED_EXP_FLOOR = -60.0f;  // ≙ flash_attention.py _BOUNDED_EXP_FLOOR
+using namespace attn_bwd;
 
-// (batch, head, token) element strides of the eight [B, H, T, D] operands;
-// o is read by K10 alone (K2's Δ comes from the prologue)
-struct Strides {
-  int64_t q[3], k[3], v[3], o[3], dO[3], dq[3], dk[3], dv[3];
-};
+constexpr float NORM_EPS = 1e-30f;  // ≙ flash_attention.py _NORM_EPS
 
 template <int D>
 struct Pitch {
@@ -381,15 +354,6 @@ __device__ __forceinline__ void dkv_epilogue(SmemKV<D>& sm, const FragAcc (&acc_
 }
 
 // ------------------------------------------------------------------ K2 / K5
-// The recomputed softmax entry exp(s − lse), or K5's clamped form
-// exp(max(s − bound, −60) + (bound − lse)), as exp2 with log2 e folded in:
-// c = −lse·log2 e (K2) or (bound − lse)·log2 e (K5), b2 = bound·log2 e
-template <bool BOUNDED>
-__device__ __forceinline__ float recompute_p2(float s, float c, float b2) {
-  if constexpr (BOUNDED) return exp2f(fmaxf(fmaf(s, LOG2E, -b2), BOUNDED_EXP_FLOOR * LOG2E) + c);
-  return exp2f(fmaf(s, LOG2E, c));
-}
-
 // An fp32 64 × D accumulator (hopper.cuh's layout) → rows of `g` (pitch
 // Pitch<D>::S), for the row-wise epilogues
 template <int D>
@@ -405,40 +369,17 @@ __device__ __forceinline__ void dump_acc(float* g, const float (&acc)[D / 2]) {
           make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
 }
 
-// byte offsets in the dK/dV block's 1024-aligned dynamic shared memory
+// the epilogues' fp32 [64, D] rows reuse the walks' two stages
 template <int D>
-struct LayoutKV {
-  static constexpr int TILE = BLOCK * D * 2;  // one swizzled 64-row bf16 tile
-  static constexpr int KH = 0, V = TILE;      // this block's k̂ and v, the whole walk
-  static constexpr int STAGES = 2 * TILE;     // stage s at STAGES + s·STAGE: q̂_s, dO, lse, Δ
-  static constexpr int STAGE = (2 * TILE + 2 * BLOCK * 4 + 1023) / 1024 * 1024;
-  static constexpr int BYTES = STAGES + 2 * STAGE + 1024;  // + alignment slack
-  // the epilogue's fp32 [64, D] rows reuse the stages
-  static_assert(2 * STAGE >= BLOCK * Pitch<D>::S * 4, "epilogue tile");
-};
+constexpr bool epilogue_fits(int stage) { return 2 * stage >= BLOCK * Pitch<D>::S * 4; }
+static_assert(epilogue_fits<64>(LayoutKV<64>::STAGE) && epilogue_fits<32>(LayoutKV<32>::STAGE), "epilogue tile");
+static_assert(epilogue_fits<64>(LayoutQ<64, true>::STAGE) && epilogue_fits<32>(LayoutQ<32, true>::STAGE),
+              "epilogue tile");
 
-// one query tile's q̂_s, dO and [lse, Δ] rows into a dK/dV stage
-template <int D>
-__device__ __forceinline__ void load_query_stage(uint32_t stage, const bf16* __restrict__ qb,
-                                                 const bf16* __restrict__ dOb, int64_t dO_st,
-                                                 const float* __restrict__ lseb,
-                                                 const float* __restrict__ deltab, int m0, int T) {
-  using L = LayoutKV<D>;
-  hopper::load_tile<D>(stage, qb, D, m0, T);
-  hopper::load_tile<D>(stage + L::TILE, dOb, dO_st, m0, T);
-  if (threadIdx.x < 2 * BLOCK / 4) {  // 16 chunks of lse, 16 of Δ: padded rows, always in range
-    const int c = threadIdx.x % (BLOCK / 4);
-    const float* src = (threadIdx.x < BLOCK / 4 ? lseb : deltab) + m0 + 4 * c;
-    hopper::cp_async16(stage + 2 * L::TILE + threadIdx.x * 16, src, true);
-  }
-}
-
-// dK/dV pass: one block (one warpgroup) per (b·h, 64-key tile).  k̂ and v
-// stay in shared memory; each query tile's q̂_s, dO, lse and Δ arrive in a
-// two-stage cp.async ring.  Sᵀ = k̂ q̂_sᵀ and dPᵀ = v dOᵀ are wgmmas into
-// registers; Pᵀ and dSᵀ are formed there, rounded to bf16 and fed from
-// registers to dV += Pᵀ dO and dk̂ += dSᵀ q̂_s, whose B operands are the
-// query tile read MN-major.  dV and dk̂ stay in registers across the walk.
+// dK/dV pass: one block (one warpgroup) per (b·h, 64-key tile), attn_bwd.cuh's
+// walk with K = k̂ and Q = q̂_s.  Epilogue (≙ dkv_epilogue): dV straight out;
+// dk̂ through the justnorm VJP; this key tile's Σ_t dk̂ ⊙ kn into its dsqk
+// partial slot.
 template <int D, bool BOUNDED>
 __global__ void __launch_bounds__(NUM_THREADS)
 qknorm_attn_bwd_dkv_kernel(const bf16* __restrict__ k, const float* __restrict__ sqk,
@@ -448,9 +389,7 @@ qknorm_attn_bwd_dkv_kernel(const bf16* __restrict__ k, const float* __restrict__
                            bf16* __restrict__ dk, bf16* __restrict__ dv,
                            float* __restrict__ dsqk_part, int H, int T, int T_pad, int n_slots,
                            float scale, Strides st) {
-  using namespace hopper;
   using L = LayoutKV<D>;
-  constexpr int ROW = 2 * D;
   extern __shared__ unsigned char smem_raw[];
   __shared__ float red[NUM_WARPS];
   const uint32_t raw = smem_u32(smem_raw);
@@ -460,107 +399,13 @@ qknorm_attn_bwd_dkv_kernel(const bf16* __restrict__ k, const float* __restrict__
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
   const int n0 = blockIdx.x * BLOCK;
-  const int lane = threadIdx.x & 31;
-  const int c0 = 2 * (lane & 3);  // this thread's columns 8·j + c0 + c (hopper.cuh)
   const float* s_vec = sqk + h * D;
   const float bound = BOUNDED ? head_bound<D>(s_vec, scale, red) : 0.f;
-  const float b2 = bound * LOG2E;
-  const bf16* qb = qs + (int64_t)bh * T * D;
-  const bf16* dOb = dO + b * st.dO[0] + h * st.dO[1];
-  const float* lseb = lse_pad + (int64_t)bh * T_pad;
-  const float* deltab = delta_pad + (int64_t)bh * T_pad;
-
-  load_tile<D>(base + L::KH, kh + (int64_t)bh * T * D, D, n0, T);
-  load_tile<D>(base + L::V, v + b * st.v[0] + h * st.v[1], st.v[2], n0, T);
-  load_query_stage<D>(base + L::STAGES, qb, dOb, st.dO[2], lseb, deltab, 0, T);
-  cp_async_commit();
-
   float acc_dv[D / 2], acc_dk[D / 2];
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc_dv[i] = acc_dk[i] = 0.f;
-  const int n_tiles = T_pad / BLOCK;
-  for (int m = 0; m < n_tiles; ++m) {
-    cp_async_wait<0>();  // query tile m has landed
-    fence_proxy_async();
-    __syncthreads();     // ... for every thread; and tile m − 1's stage is free
-    if (m + 1 < n_tiles)
-      load_query_stage<D>(base + L::STAGES + ((m + 1) & 1) * L::STAGE, qb, dOb, st.dO[2], lseb,
-                          deltab, (m + 1) * BLOCK, T);
-    cp_async_commit();
-    const uint32_t q_s = base + L::STAGES + (m & 1) * L::STAGE;
-    const uint32_t do_s = q_s + L::TILE;
-    const float* lse_s = reinterpret_cast<const float*>(sp + (q_s - base) + 2 * L::TILE);
-    const float* delta_s = lse_s + BLOCK;
+  dkv_walk<D, BOUNDED>(acc_dv, acc_dk, base, sp, kh + (int64_t)bh * T * D, D, v + b * st.v[0] + h * st.v[1],
+                       st.v[2], qs + (int64_t)bh * T * D, dO + b * st.dO[0] + h * st.dO[1], st.dO[2],
+                       lse_pad + (int64_t)bh * T_pad, delta_pad + (int64_t)bh * T_pad, n0, T, T_pad, bound);
 
-    // Sᵀ and dPᵀ [64 keys, 64 queries]
-    float s[32], dp[32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
-    fence_operands(s);
-    fence_operands(dp);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss(s, smem_desc<ROW>(base + L::KH + kk * 32), smem_desc<ROW>(q_s + kk * 32), kk > 0);
-    wgmma_commit();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss(dp, smem_desc<ROW>(base + L::V + kk * 32), smem_desc<ROW>(do_s + kk * 32), kk > 0);
-    wgmma_commit();
-    wgmma_wait<1>();  // Sᵀ is in; dPᵀ still runs while Pᵀ is formed
-    fence_operands(s);
-
-    // Pᵀ = exp(Sᵀ − lse[query]) (K5: clamped) and dSᵀ = Pᵀ ⊙ (dPᵀ − Δ[query]);
-    // P = 0 for queries past T
-    const int m0 = m * BLOCK;
-    const bool ragged = m0 + BLOCK > T;
-#pragma unroll
-    for (int j = 0; j < BLOCK / 8; ++j)
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int col = 8 * j + c0 + c;
-        const bool live = !ragged || m0 + col < T;
-        const float cl = BOUNDED ? (bound - lse_s[col]) * LOG2E : -lse_s[col] * LOG2E;
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int r = 4 * j + 2 * i + c;
-          s[r] = live ? recompute_p2<BOUNDED>(s[r], cl, b2) : 0.f;
-        }
-      }
-    wgmma_wait<0>();
-    fence_operands(dp);
-#pragma unroll
-    for (int j = 0; j < BLOCK / 8; ++j)
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const float dl = delta_s[8 * j + c0 + c];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int r = 4 * j + 2 * i + c;
-          dp[r] = s[r] * (dp[r] - dl);
-        }
-      }
-    uint32_t pa[BLOCK / 16][4], da[BLOCK / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < BLOCK / 16; ++kk) {
-      pack_a(pa[kk], s, kk);
-      pack_a(da[kk], dp, kk);
-    }
-    fence_operands(acc_dv);
-    fence_operands(acc_dk);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < BLOCK / 16; ++kk) wgmma_rs(acc_dv, pa[kk], smem_desc<ROW>(do_s + kk * 16 * ROW));
-#pragma unroll
-    for (int kk = 0; kk < BLOCK / 16; ++kk) wgmma_rs(acc_dk, da[kk], smem_desc<ROW>(q_s + kk * 16 * ROW));
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_operands(acc_dv);
-    fence_operands(acc_dk);
-  }
-
-  // epilogue (≙ dkv_epilogue): dV straight out; dk̂ through the justnorm VJP;
-  // this key tile's Σ_t dk̂ ⊙ kn into its dsqk partial slot
   __syncthreads();  // every wgmma is done with the stages
   float* g = reinterpret_cast<float*>(sp + L::STAGES);
   const int row = threadIdx.x >> 1, half = threadIdx.x & 1;  // two threads per key row
@@ -579,32 +424,9 @@ qknorm_attn_bwd_dkv_kernel(const bf16* __restrict__ k, const float* __restrict__
   write_dsqk_partial<D>(g, dsqk_part + ((int64_t)bh * n_slots + blockIdx.x) * D);
 }
 
-// byte offsets in the dQ block's 1024-aligned dynamic shared memory
-template <int D>
-struct LayoutQ {
-  static constexpr int TILE = BLOCK * D * 2;
-  static constexpr int Q = 0, DO = TILE;   // this block's q̂_s and dO, the whole walk
-  static constexpr int STAGES = 2 * TILE;  // stage s at STAGES + s·STAGE: k̂, k̂_s, v
-  static constexpr int STAGE = 3 * TILE;
-  static constexpr int BYTES = STAGES + 2 * STAGE + 1024;
-  static_assert(2 * STAGE >= BLOCK * Pitch<D>::S * 4, "epilogue tile");
-};
-
-template <int D>
-__device__ __forceinline__ void load_key_stage(uint32_t stage, const bf16* __restrict__ khb,
-                                               const bf16* __restrict__ ksb,
-                                               const bf16* __restrict__ vb, int64_t v_st, int n0,
-                                               int T) {
-  constexpr int TILE = LayoutQ<D>::TILE;
-  hopper::load_tile<D>(stage, khb, D, n0, T);
-  hopper::load_tile<D>(stage + TILE, ksb, D, n0, T);
-  hopper::load_tile<D>(stage + 2 * TILE, vb, v_st, n0, T);
-}
-
-// dQ pass: one block per (b·h, 64-query tile), query-major, walking the key
-// tiles (k̂, k̂_s, v) in a two-stage cp.async ring: S = q̂_s k̂ᵀ and dP = dO vᵀ
-// into registers, dS formed there and fed from registers to dq̂ += dS k̂_s
-// (k̂_s read MN-major); dq̂ stays in registers.
+// dQ pass: one block per (b·h, 64-query tile), attn_bwd.cuh's walk over the
+// key tiles k̂, k̂_s and v.  Epilogue: dq̂ through the justnorm VJP → dq, and
+// the tile's Σ_t dq̂ ⊙ qn.
 template <int D, bool BOUNDED>
 __global__ void __launch_bounds__(NUM_THREADS)
 qknorm_attn_bwd_dq_kernel(const bf16* __restrict__ q, const float* __restrict__ sqk,
@@ -614,9 +436,7 @@ qknorm_attn_bwd_dq_kernel(const bf16* __restrict__ q, const float* __restrict__ 
                           const float* __restrict__ delta_pad, bf16* __restrict__ dq,
                           float* __restrict__ dsqk_part, int H, int T, int T_pad, int n_slots,
                           int n_tiles, float scale, Strides st) {
-  using namespace hopper;
-  using L = LayoutQ<D>;
-  constexpr int ROW = 2 * D;
+  using L = LayoutQ<D, true>;
   extern __shared__ unsigned char smem_raw[];
   __shared__ float red[NUM_WARPS];
   const uint32_t raw = smem_u32(smem_raw);
@@ -626,93 +446,13 @@ qknorm_attn_bwd_dq_kernel(const bf16* __restrict__ q, const float* __restrict__ 
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
   const int m0 = blockIdx.x * BLOCK;
-  const int lane = threadIdx.x & 31;
-  const int c0 = 2 * (lane & 3);
   const float* s_vec = sqk + h * D;
   const float bound = BOUNDED ? head_bound<D>(s_vec, scale, red) : 0.f;
-  const float b2 = bound * LOG2E;
   const int64_t head = (int64_t)bh * T * D;
-  const bf16* vb = v + b * st.v[0] + h * st.v[1];
-
-  load_tile<D>(base + L::Q, qs + head, D, m0, T);
-  load_tile<D>(base + L::DO, dO + b * st.dO[0] + h * st.dO[1], st.dO[2], m0, T);
-  load_key_stage<D>(base + L::STAGES, kh + head, ks + head, vb, st.v[2], 0, T);
-  cp_async_commit();
-
-  // this thread's query rows r_i = 16·warp + lane/4 + 8·i: lse and Δ (zero past T)
-  float cl[2], delta_r[2];  // recompute_p2's c
-  bool row_live[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int t = m0 + (threadIdx.x >> 5) * 16 + (lane >> 2) + 8 * i;
-    row_live[i] = t < T;
-    const float l = lse_pad[(int64_t)bh * T_pad + t];
-    cl[i] = BOUNDED ? (bound - l) * LOG2E : -l * LOG2E;
-    delta_r[i] = delta_pad[(int64_t)bh * T_pad + t];
-  }
   float acc_dq[D / 2];
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc_dq[i] = 0.f;
-
-  for (int n = 0; n < n_tiles; ++n) {
-    cp_async_wait<0>();
-    fence_proxy_async();
-    __syncthreads();
-    if (n + 1 < n_tiles)
-      load_key_stage<D>(base + L::STAGES + ((n + 1) & 1) * L::STAGE, kh + head, ks + head, vb,
-                        st.v[2], (n + 1) * BLOCK, T);
-    cp_async_commit();
-    const uint32_t kh_s = base + L::STAGES + (n & 1) * L::STAGE;
-    const uint32_t ks_s = kh_s + L::TILE, v_s = kh_s + 2 * L::TILE;
-
-    // S and dP [64 queries, 64 keys]
-    float s[32], dp[32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
-    fence_operands(s);
-    fence_operands(dp);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss(s, smem_desc<ROW>(base + L::Q + kk * 32), smem_desc<ROW>(kh_s + kk * 32), kk > 0);
-    wgmma_commit();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss(dp, smem_desc<ROW>(base + L::DO + kk * 32), smem_desc<ROW>(v_s + kk * 32), kk > 0);
-    wgmma_commit();
-    wgmma_wait<1>();  // S is in; dP still runs while P is formed
-    fence_operands(s);
-
-    // dS = P ⊙ (dP − Δ) with P = exp(S − lse) (K5: clamped); zero for keys
-    // and queries past T
-    const int n0 = n * BLOCK;
-    const bool ragged = n0 + BLOCK > T;
-#pragma unroll
-    for (int j = 0; j < BLOCK / 8; ++j)
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const bool key_live = !ragged || n0 + 8 * j + c0 + c < T;
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int r = 4 * j + 2 * i + c;
-          s[r] = key_live && row_live[i] ? recompute_p2<BOUNDED>(s[r], cl[i], b2) : 0.f;
-        }
-      }
-    wgmma_wait<0>();
-    fence_operands(dp);
-#pragma unroll
-    for (int r = 0; r < 32; ++r) dp[r] = s[r] * (dp[r] - delta_r[(r >> 1) & 1]);
-    uint32_t da[BLOCK / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < BLOCK / 16; ++kk) pack_a(da[kk], dp, kk);
-    fence_operands(acc_dq);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < BLOCK / 16; ++kk) wgmma_rs(acc_dq, da[kk], smem_desc<ROW>(ks_s + kk * 16 * ROW));
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_operands(acc_dq);
-  }
+  dq_walk<D, BOUNDED, true>(acc_dq, base, qs + head, dO + b * st.dO[0] + h * st.dO[1], st.dO[2], kh + head, D,
+                            ks + head, v + b * st.v[0] + h * st.v[1], st.v[2], lse_pad + (int64_t)bh * T_pad,
+                            delta_pad + (int64_t)bh * T_pad, m0, T, n_tiles, bound);
 
   // epilogue: dq̂ through the justnorm VJP → dq, and the tile's Σ_t dq̂ ⊙ qn
   __syncthreads();
@@ -909,11 +649,6 @@ qknorm_attn_bwd_subtiled_dq_kernel(const bf16* __restrict__ q, const float* __re
   write_dsqk_partial<D>(g, dsqk_part + ((int64_t)bh * n_slots + n_tiles + blockIdx.x) * D);
 }
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
 template <int D, bool BOUNDED>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* sqk, const void* qs,
                    const void* kh, const void* ks, const void* lse_pad, const void* delta_pad,
@@ -933,7 +668,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* sqk,
       static_cast<bf16*>(dv), static_cast<float*>(dsqk_part), H, T, T_pad, n_slots, scale, st);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  const int smem_q = LayoutQ<D>::BYTES;
+  const int smem_q = LayoutQ<D, true>::BYTES;
   if ((err = allow_smem(qknorm_attn_bwd_dq_kernel<D, BOUNDED>, smem_q)) != cudaSuccess) return err;
   qknorm_attn_bwd_dq_kernel<D, BOUNDED><<<grid, NUM_THREADS, smem_q, stream>>>(
       static_cast<const bf16*>(q), static_cast<const float*>(sqk), static_cast<const bf16*>(qs),

@@ -24,6 +24,13 @@
 // [32, 12, 784, 64]), four in and three out in the backward's — so it is a
 // plain kernel of 16-byte loads and stores, one chunk of each row per
 // thread, every load in flight before the first sum.
+//
+// Its plain mode (flash_project_kernel, nvit_flash_project) is the prologue
+// of the baseline backward (K8/K9, flash_attn_bwd.cu), for the same reason:
+// qs = bf16(q · scale) and, for K8, ks = bf16(k · scale), with the softmax
+// scale rounded to bf16 (the TPU kernels' weak-typed `q_ref[0] * scale`),
+// and the padded lse and Δ — Σ_d dO·O for K8 (≙ _bwd_fused_kernel's),
+// the given one for K9 (≙ _bwd's, computed outside the kernels).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -73,6 +80,26 @@ __device__ __forceinline__ uint4 project_chunk(const float (&x)[8], float norm,
   return packed;
 }
 
+// Δ = Σ_d dO·O of row t (fp32; the chunks ro, rg of o and dO, summed over
+// the row's CPR lanes) and lse into the padded [B·H, T_pad] stat rows, zero
+// past T; lane j = 0 of the row writes
+template <int CPR>
+__device__ __forceinline__ void write_stats(uint4 ro, uint4 rg, const float* __restrict__ lse,
+                                            float* __restrict__ lse_pad, float* __restrict__ delta_pad,
+                                            int bh, int t, int T, int T_pad, int j) {
+  float xo[8], xg[8];
+  to_float(xo, ro);
+  to_float(xg, rg);
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc += xg[i] * xo[i];
+  acc = row_sum<CPR>(acc);
+  if (j == 0) {  // t < T_pad: the grid covers the padded rows exactly
+    delta_pad[(int64_t)bh * T_pad + t] = t < T ? acc : 0.f;
+    lse_pad[(int64_t)bh * T_pad + t] = t < T ? lse[(int64_t)bh * T + t] : 0.f;
+  }
+}
+
 // One block per (64 tokens, b·h); D/8 threads per token, one 16-byte chunk
 // of each row each, so every load of the block is in flight at once.
 // BWD: the backward's call, with k̂_s, Δ and the padded lse.
@@ -115,18 +142,56 @@ qknorm_project_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     *reinterpret_cast<uint4*>(kh + out) = project_chunk(xk, nk, s_vec, 1.0f, j);
     if constexpr (BWD) *reinterpret_cast<uint4*>(ks + out) = project_chunk(xk, nk, s_vec, scale, j);
   }
-  if constexpr (BWD) {
-    float xo[8], xg[8];
-    to_float(xo, ro);
-    to_float(xg, rg);
-    float acc = 0.f;
+  if constexpr (BWD) write_stats<CPR>(ro, rg, lse, lse_pad, delta_pad, bh, t, T, T_pad, j);
+}
+
+// bf16(x · scale) of chunk j, rounded once (scale bf16-exact)
+__device__ __forceinline__ uint4 scale_chunk(uint4 raw, float scale) {
+  __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&raw);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) acc += xg[i] * xo[i];
-    acc = row_sum<CPR>(acc);
+  for (int i = 0; i < 4; ++i) {
+    const float2 x = __bfloat1622float2(e[i]);
+    e[i] = __floats2bfloat162_rn(x.x * scale, x.y * scale);
+  }
+  return raw;
+}
+
+// The baseline backward's prologue: one block per (64 tokens, b·h), D/8
+// threads per token, as qknorm_project_kernel.  K8 (SPLIT false): qs, ks and
+// Δ = Σ_d dO·O; K9 (SPLIT true): qs, and the given Δ copied.  Both pad lse
+// and Δ to T_pad rows.
+template <int D, bool SPLIT>
+__global__ void __launch_bounds__(ROWS * D / 8)
+flash_project_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, bf16* __restrict__ qs,
+                     bf16* __restrict__ ks, const bf16* __restrict__ o, const bf16* __restrict__ dO,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     float* __restrict__ lse_pad, float* __restrict__ delta_pad, int H, int T,
+                     int T_pad, float scale, Strides st) {
+  constexpr int CPR = D / 8;
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const int t = blockIdx.x * ROWS + threadIdx.x / CPR;
+  const int j = threadIdx.x % CPR;
+
+  const uint4 rq = load_chunk(q + b * st.q[0] + h * st.q[1], st.q[2], t, T, j);
+  uint4 rk, ro, rg;
+  if constexpr (!SPLIT) {
+    rk = load_chunk(k + b * st.k[0] + h * st.k[1], st.k[2], t, T, j);
+    ro = load_chunk(o + b * st.o[0] + h * st.o[1], st.o[2], t, T, j);
+    rg = load_chunk(dO + b * st.dO[0] + h * st.dO[1], st.dO[2], t, T, j);
+  }
+  const int64_t out = ((int64_t)bh * T + t) * D + 8 * j;  // scratch [B·H, T, D]
+  if (t < T) {
+    *reinterpret_cast<uint4*>(qs + out) = scale_chunk(rq, scale);
+    if constexpr (!SPLIT) *reinterpret_cast<uint4*>(ks + out) = scale_chunk(rk, scale);
+  }
+  if constexpr (SPLIT) {
     if (j == 0) {  // t < T_pad: the grid covers the padded rows exactly
-      delta_pad[(int64_t)bh * T_pad + t] = t < T ? acc : 0.f;
+      delta_pad[(int64_t)bh * T_pad + t] = t < T ? delta[(int64_t)bh * T + t] : 0.f;
       lse_pad[(int64_t)bh * T_pad + t] = t < T ? lse[(int64_t)bh * T + t] : 0.f;
     }
+  } else {
+    write_stats<CPR>(ro, rg, lse, lse_pad, delta_pad, bh, t, T, T_pad, j);
   }
 }
 
@@ -171,5 +236,40 @@ extern "C" cudaError_t nvit_qknorm_project(const void* q, const void* k, const v
   if (D == 32)
     return bwd ? launch<32, true>(q, k, sqk, qs, kh, ks, o, dO, lse, lse_pad, delta_pad, B, H, T, scale, st, s)
                : launch<32, false>(q, k, sqk, qs, kh, ks, o, dO, lse, lse_pad, delta_pad, B, H, T, scale, st, s);
+  return cudaErrorInvalidValue;
+}
+
+// The baseline backward's prologue.  q, k, o, dO: bf16 [B, H, T, D]
+// addressed through (batch, head, token) element strides, head dim
+// contiguous; lse (and delta, for K9): fp32 [B·H, T].  Writes qs (and ks for
+// K8) as bf16 [B·H, T, D], and lse_pad and delta_pad, fp32 [B·H, T_pad] with
+// T_pad = 64·ceil(T/64).  delta null: K8 (k, o and dO read, ks written,
+// Δ = Σ_d dO·O); delta given: K9 (k, o, dO and ks not touched).  scale: the
+// softmax scale already rounded to bf16.
+// strides = {q_sb, q_sh, q_st, k_.., o_.., dO_..}.
+extern "C" cudaError_t nvit_flash_project(const void* q, const void* k, void* qs, void* ks, const void* o,
+                                          const void* dO, const void* lse, const void* delta, void* lse_pad,
+                                          void* delta_pad, int B, int H, int T, int D, float scale,
+                                          const int64_t* strides, void* stream) {
+  if (B <= 0 || H <= 0 || T <= 0 || lse_pad == nullptr || delta_pad == nullptr) return cudaErrorInvalidValue;
+  const bool split = delta != nullptr;
+  if (!split && (k == nullptr || ks == nullptr || o == nullptr || dO == nullptr)) return cudaErrorInvalidValue;
+  Strides st;
+  int64_t* dst[4] = {st.q, st.k, st.o, st.dO};
+  for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 3; ++j) dst[i][j] = strides[3 * i + j];
+  const int n_tiles = (T + ROWS - 1) / ROWS;
+  const dim3 grid(n_tiles, B * H);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto go = [&](auto kernel, int threads) {
+    kernel<<<grid, threads, 0, s>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<bf16*>(qs), static_cast<bf16*>(ks),
+        static_cast<const bf16*>(o), static_cast<const bf16*>(dO), static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<float*>(lse_pad), static_cast<float*>(delta_pad), H, T,
+        n_tiles * ROWS, scale, st);
+    return cudaGetLastError();
+  };
+  if (D == 64) return split ? go(flash_project_kernel<64, true>, ROWS * 8) : go(flash_project_kernel<64, false>, ROWS * 8);
+  if (D == 32) return split ? go(flash_project_kernel<32, true>, ROWS * 4) : go(flash_project_kernel<32, false>, ROWS * 4);
   return cudaErrorInvalidValue;
 }

@@ -36,6 +36,7 @@ GROUPS = {
     "K4/K6 gated_mlp_bwd": ("gated_mlp_bwd_kernel",),
     "K7 flash_attn_fwd": ("flash_attn_fwd_kernel",),
     "K8/K9 flash_attn_bwd": ("flash_attn_bwd_",),
+    "K8/K9 backward prologue": ("flash_project_kernel",),
     "cuBLAS GEMMs": ("gemm", "cutlass", "xmma", "cublas", "nvjet"),
 }
 

@@ -25,9 +25,12 @@ Baseline mode (plain softmax(q·kᵀ·scale)·v): K7 replaces ``_fwd_kernel``
 (launched by ``_fwd``); K8 replaces ``_bwd_fused_kernel`` and K9 the split
 ``_dq_kernel`` / ``_dkv_kernel``, both launched by ``_bwd``.  The kernels are
 ``csrc/flash_attn_fwd.cu`` (K7) and ``csrc/flash_attn_bwd.cu`` (K8 and K9:
-one tiled backward whose dQ pass keeps either kernel's rounding).  The
-kernels' headers say what bounds them on the H100 and how the designs answer
-that.
+one tiled backward whose dQ pass keeps either kernel's rounding), after the
+backward's prologue ``flash_project_bf16`` (``csrc/qknorm_project.cu``'s
+plain mode), which rounds q·scale (and k·scale for K8) to bf16 once per call.
+They run the QK-norm kernels' wgmma tile loops (``csrc/attn_fwd.cuh``,
+``csrc/attn_bwd.cuh``) with the plain operands; the sources' headers say what
+bounds them on the H100 and how the designs answer that.
 
 ``flash_attention_qknorm`` and ``flash_attention`` take q/k/v as
 ``[B, H, T, D]`` tensors — any strides with a contiguous last dim, so the
@@ -639,10 +642,10 @@ def flash_attention_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, *, with_lse: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Launch K7 on CUDA tensors → (o [B, H, T, D] bf16, lse [B, H, T] fp32 or
-    None).  o is a [B, H, T, D] view of [B, T, H, D] storage, so merging the
-    heads afterwards costs no copy.  Counts each launch in ``.launches``."""
-    from nvit_tpu_torch.ops._build import load_library
-
+    None).  The kernel folds the bf16-rounded scale into each q tile it
+    loads, so it needs no prologue.  o is a [B, H, T, D] view of [B, T, H, D]
+    storage, so merging the heads afterwards costs no copy.  Counts each
+    launch in ``.launches``."""
     b, h, t, d = _check_qkv(q, k, v)
     _check_cuda_bf16("flash_attention_fwd", (q, k, v), d)
     o = torch.empty((b, t, h, d), dtype=torch.bfloat16, device=q.device).permute(0, 2, 1, 3)
@@ -650,11 +653,7 @@ def flash_attention_fwd(
     strides = (ctypes.c_int64 * 12)(*(
         st for x, name in ((q, "q"), (k, "k"), (v, "v"), (o, "o")) for st in _launch_strides(x, name)
     ))
-    fn = load_library("flash_attn_fwd").nvit_flash_attn_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
+    fn = _entry("flash_attn_fwd", "nvit_flash_attn_fwd", (_PTR,) * 5 + (_INT,) * 4 + (_F32, _STRIDES, _PTR))
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr() if lse is not None else None, b, h, t, d, _bf16_scale(scale), strides,
@@ -669,13 +668,84 @@ def flash_attention_fwd(
 flash_attention_fwd.launches = 0
 
 
-def _launch_bwd(q, k, v, o, lse, do, delta, scale: float, *, split: bool):
-    """One launch of csrc/flash_attn_bwd.cu → (dq, dk, dv) bf16 [B, H, T, D],
-    views of ONE [B, T, 3, H, D] buffer.  ``split=False`` is K8 (Δ from o
-    and dO in the kernel's first pass, dq = bf16(dS)·bf16(k·scale));
-    ``split=True`` is K9 (Δ given, dq = (bf16(dS)·k)·scale in fp32)."""
-    from nvit_tpu_torch.ops._build import load_library
+def flash_project_bf16_ref(
+    q: torch.Tensor, k: torch.Tensor, scale: float, *, lse: torch.Tensor, o: torch.Tensor | None = None,
+    do: torch.Tensor | None = None, delta: torch.Tensor | None = None,
+) -> tuple:
+    """Plain twin of the baseline backward's prologue (``csrc/qknorm_project.cu``,
+    ``nvit_flash_project``) → (qs, ks, lse_pad, Δ_pad).
 
+    qs = bf16(q·scale), the TPU kernels' fold with the scale rounded to bf16
+    (``_scaled``), [B·H, T, D] contiguous.  Given o and do (K8's call): also
+    ks = bf16(k·scale) and Δ = rowsum(dO ∘ O) in fp32; given ``delta`` (K9's
+    call): ks is None and Δ is that one.  lse and Δ come back fp32
+    [B·H, T_pad] with T_pad = 64·ceil(T/64), zero past T."""
+    b, h, t, d = q.shape
+    flat = lambda x: _scaled(x.to(torch.bfloat16), scale).reshape(b * h, t, d)  # noqa: E731
+    ks = flat(k) if delta is None else None
+    if delta is None:
+        delta = attention_delta(o, do)
+    pad = -(-t // BLOCK) * BLOCK - t
+    stats = [torch.nn.functional.pad(x.float().reshape(b * h, t), (0, pad)) for x in (lse, delta)]
+    return flat(q), ks, *stats
+
+
+def flash_project_bf16(
+    q: torch.Tensor, k: torch.Tensor, scale: float, *, lse: torch.Tensor, o: torch.Tensor | None = None,
+    do: torch.Tensor | None = None, delta: torch.Tensor | None = None,
+) -> tuple:
+    """The baseline backward's prologue, ``nvit_flash_project`` in
+    ``csrc/qknorm_project.cu`` → as ``flash_project_bf16_ref``: the K8/K9
+    walks read q·scale (and k·scale) once per tile they visit, so it is
+    rounded here once per call.  Pass o and do (K8) or ``delta`` (K9), not
+    both.  CUDA tensors launch the kernel and count it in ``.launches``; CPU
+    tensors run the twin."""
+    if (delta is None) == (o is None or do is None):
+        raise ValueError("flash_project_bf16 takes o and do (K8) or delta (K9)")
+    if not q.is_cuda:
+        return flash_project_bf16_ref(q, k, scale, lse=lse, o=o, do=do, delta=delta)
+    b, h, t, d = _check_qkv(q, k, k)
+    split = delta is not None
+    _check_cuda_bf16("flash_project_bf16", (q, k) + (() if split else (o, do)), d)
+    stats = (lse,) + ((delta,) if split else ())
+    if not split and (o.shape != q.shape or do.shape != q.shape):
+        raise ValueError(f"flash_project_bf16: o and do must be {tuple(q.shape)}")
+    if not all(x.is_cuda and x.dtype == torch.float32 and tuple(x.shape) == (b, h, t) for x in stats):
+        raise ValueError(f"flash_project_bf16: lse (and delta) must be fp32 CUDA {(b, h, t)}")
+    scratch = lambda: torch.empty((b * h, t, d), dtype=torch.bfloat16, device=q.device)  # noqa: E731
+    qs = scratch()
+    ks = None if split else scratch()
+    t_pad = -(-t // BLOCK) * BLOCK
+    lse_pad, delta_pad = (torch.empty((b * h, t_pad), dtype=torch.float32, device=q.device) for _ in range(2))
+    lse = lse.contiguous()
+    delta = delta.contiguous() if split else None
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    strides = (ctypes.c_int64 * 12)(
+        *_launch_strides(q, "q"), *_launch_strides(k, "k"),
+        *(_launch_strides(o, "o") if not split else (0, 0, 0)),
+        *(_launch_strides(do, "do") if not split else (0, 0, 0)),
+    )
+    fn = _entry("qknorm_project", "nvit_flash_project", (_PTR,) * 10 + (_INT,) * 4 + (_F32, _STRIDES, _PTR))
+    err = fn(
+        q.data_ptr(), k.data_ptr(), qs.data_ptr(), ptr(ks), ptr(o), ptr(do), lse.data_ptr(), ptr(delta),
+        lse_pad.data_ptr(), delta_pad.data_ptr(), b, h, t, d, _bf16_scale(scale), strides,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"flash_project launch failed: cudaError {err}")
+    flash_project_bf16.launches += 1
+    return qs, ks, lse_pad, delta_pad
+
+
+flash_project_bf16.launches = 0
+
+
+def _launch_bwd(q, k, v, o, lse, do, delta, scale: float, *, split: bool):
+    """One backward of csrc/flash_attn_bwd.cu, after its prologue
+    (``flash_project_bf16``) → (dq, dk, dv) bf16 [B, H, T, D], views of ONE
+    [B, T, 3, H, D] buffer.  ``split=False`` is K8 (Δ from o and dO in the
+    prologue, dq = bf16(dS)·bf16(k·scale)); ``split=True`` is K9 (Δ given,
+    dq = (bf16(dS)·k)·scale in fp32)."""
     b, h, t, d = _check_qkv(q, k, v)
     name = "attention_bwd_split" if split else "attention_bwd_fused"
     _check_cuda_bf16(name, (q, k, v, do) + (() if split else (o,)), d)
@@ -689,30 +759,22 @@ def _launch_bwd(q, k, v, o, lse, do, delta, scale: float, *, split: bool):
     if split:
         if tuple(delta.shape) != (b, h, t) or not delta.is_cuda or delta.dtype != torch.float32:
             raise ValueError(f"{name} takes an fp32 CUDA delta of shape {(b, h, t)}")
-        delta = delta.contiguous()
-        o = do  # not read: Δ is given
+        qs, ks, lse_pad, delta_pad = flash_project_bf16(q, k, scale, lse=lse, delta=delta)
     else:
         if o.shape != q.shape:
             raise ValueError(f"o must be {tuple(q.shape)}, got {tuple(o.shape)}")
-        delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
-    lse = lse.contiguous()
+        qs, ks, lse_pad, delta_pad = flash_project_bf16(q, k, scale, lse=lse, o=o, do=do)
     grads = torch.empty((b, t, 3, h, d), dtype=torch.bfloat16, device=q.device)
     dq, dk, dv = (grads[:, :, i].permute(0, 2, 1, 3) for i in range(3))
-    strides = (ctypes.c_int64 * 24)(*(
-        st for x, nm in ((q, "q"), (k, "k"), (v, "v"), (o, "o"), (do, "do"),
-                         (dq, "dq"), (dk, "dk"), (dv, "dv"))
+    strides = (ctypes.c_int64 * 18)(*(
+        st for x, nm in ((k, "k"), (v, "v"), (do, "do"), (dq, "dq"), (dk, "dk"), (dv, "dv"))
         for st in _launch_strides(x, nm)
     ))
-    fn = load_library("flash_attn_bwd").nvit_flash_attn_bwd
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
+    fn = _entry("flash_attn_bwd", "nvit_flash_attn_bwd", (_PTR,) * 10 + (_INT,) * 4 + (_F32, _INT, _STRIDES, _PTR))
     err = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), do.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), b, h, t, d,
-        _bf16_scale(scale), float(scale), int(split), strides,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        k.data_ptr(), v.data_ptr(), do.data_ptr(), qs.data_ptr(), None if ks is None else ks.data_ptr(),
+        lse_pad.data_ptr(), delta_pad.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, t, d,
+        float(scale), int(split), strides, torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"flash_attn_bwd launch failed: cudaError {err}")

@@ -228,6 +228,38 @@ def test_dispatch_on_cpu_is_the_twin_and_wrappers_refuse_cpu():
     assert [f.launches for f in counters] == before
 
 
+def test_backward_prologue_twin_matches_jax_fold_and_delta():
+    """The baseline backward's prologue on CPU tensors (its twin,
+    ``flash_project_bf16_ref``): qs and ks bit-equal to ``_bwd_fused_kernel``'s
+    bf16 fold ``q3 * scale`` at D = 32, where 1/sqrt(32) is not bf16-exact,
+    and a ragged T; Δ within 1e-6 of ``_bwd``'s XLA rowsum(g ∘ o) in fp32;
+    lse and Δ zero-padded to whole 64-row tiles.  K9's call copies the given
+    Δ and makes no ks."""
+    b, h, t, d = 2, 2, 100, 32
+    q, k, o, do = qkv(91, b, h, t, d)
+    lse = np.random.default_rng(92).standard_normal((b, h, t), dtype=np.float32)
+    scale = 1.0 / float(np.sqrt(d))
+    qt, kt, ot, dot = (to_torch(x, torch.bfloat16) for x in (q, k, o, do))
+    lse_t = torch.from_numpy(lse)
+    qs, ks, lse_pad, delta_pad = fa.flash_project_bf16(qt, kt, scale, lse=lse_t, o=ot, do=dot)
+    for got, x in ((qs, q), (ks, k)):
+        want = np.asarray(jnp.asarray(x).astype(jnp.bfloat16) * scale).reshape(b * h, t, d)
+        assert got.dtype == torch.bfloat16 and tuple(got.shape) == (b * h, t, d)
+        np.testing.assert_array_equal(got.view(torch.int16).numpy(), want.view(np.int16))
+    g32, o32 = (jnp.asarray(x).astype(jnp.bfloat16).astype(jnp.float32) for x in (do, o))
+    jdelta = np.asarray(jnp.sum(g32 * o32, axis=-1)).reshape(b * h, t)  # ≙ _bwd's Δ
+    assert tuple(lse_pad.shape) == tuple(delta_pad.shape) == (b * h, 128)
+    np.testing.assert_allclose(delta_pad[:, :t].numpy(), jdelta, rtol=1e-6, atol=1e-6)
+    assert torch.equal(lse_pad[:, :t], lse_t.reshape(b * h, t))
+    assert not lse_pad[:, t:].any() and not delta_pad[:, t:].any()
+    delta = fa.attention_delta(ot, dot)
+    qs9, ks9, lse9, delta9 = fa.flash_project_bf16(qt, kt, scale, lse=lse_t, delta=delta)
+    assert ks9 is None and torch.equal(qs9, qs) and torch.equal(lse9, lse_pad)
+    assert torch.equal(delta9[:, :t], delta.reshape(b * h, t)) and not delta9[:, t:].any()
+    with pytest.raises(ValueError, match="o and do"):
+        fa.flash_project_bf16(qt, kt, scale, lse=lse_t)
+
+
 # ------------------------------------------------------------ model
 def base_cfg(**kw):
     base = dict(image_size=16, n_layer=2, n_head=4, n_embd=128, num_classes=7,

@@ -1,5 +1,5 @@
-"""Card-only tests: the port's CUDA kernels (K1–K10 and the QK-norm projection
-prologue) against their plain twins, K2/K5/K10 bit-deterministic,
+"""Card-only tests: the port's CUDA kernels (K1–K10 and the projection
+prologues) against their plain twins, K2/K5/K8/K9/K10 bit-deterministic,
 the autograd Functions' gradients, and one flagship-width Block's backward in
 each mode, with and without a bias and the bounded softmax.
 
@@ -235,6 +235,7 @@ def test_flagship_block_backward_matches_plain_path(cuda):
 
 # ------------------------------------------------------------ baseline mode
 BASE_SHAPES = [
+    (1, 2, 40, 64, True),    # below one tile: the ring holds one ragged tile
     (1, 2, 64, 32, False),   # one exact tile
     (2, 3, 100, 32, False),  # ragged T, head dim 32 (scale 1/sqrt(32) is not bf16-exact)
     (1, 2, 130, 64, True),   # ragged T, strided QKV views
@@ -701,3 +702,63 @@ def test_projection_prologue_matches_twin(cuda, b, h, t, d):
         assert bool(((a.float() - r.float()).abs() <= r.float().abs() * 2.0 ** -7).all())
     assert torch.equal(got[3], want[3])
     torch.testing.assert_close(got[4], want[4], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [False, True])  # K8, K9
+@pytest.mark.parametrize("b,h,t,d", [(4, 12, 784, 64), (2, 4, 100, 32)])
+def test_k8_and_k9_are_deterministic(cuda, b, h, t, d, split):
+    """No atomics in K8 or K9: two calls give the same bytes."""
+    from nvit_tpu_torch.ops.flash_attention import (
+        attention_bwd_fused,
+        attention_bwd_split,
+        attention_delta,
+        flash_attention_fwd,
+    )
+
+    q, k, v, do = base_bwd_inputs(b, h, t, d, cuda, True, seed=t + 5)
+    scale = 1.0 / float(d) ** 0.5
+    o, lse = flash_attention_fwd(q, k, v, scale, with_lse=True)
+    delta = attention_delta(o, do)
+    call = ((lambda: attention_bwd_split(q, k, v, do, lse, delta, scale)) if split
+            else (lambda: attention_bwd_fused(q, k, v, o, lse, do, scale)))
+    got, again = call(), call()
+    torch.cuda.synchronize()
+    for a, r in zip(got, again):
+        assert torch.equal(as_bytes(a), as_bytes(r))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [False, True])  # K8's call, K9's
+@pytest.mark.parametrize("b,h,t,d", [(4, 12, 784, 64), (2, 4, 100, 32)])
+def test_flash_project_matches_twin(cuda, b, h, t, d, split):
+    """The baseline backward's prologue against its twin, q/k as strided QKV
+    views: qs (and K8's ks) bit-equal — both round the same fp32 product
+    q·bf16(scale) once — lse exact, Δ to fp32 order (K8) or copied exactly
+    (K9); its launches counted."""
+    from nvit_tpu_torch.ops.flash_attention import (
+        attention_delta,
+        flash_attention_fwd,
+        flash_project_bf16,
+        flash_project_bf16_ref,
+    )
+
+    q, k, v, do = base_bwd_inputs(b, h, t, d, cuda, True, seed=t + 6)
+    scale = 1.0 / float(d) ** 0.5
+    o, lse = flash_attention_fwd(q, k, v, scale, with_lse=True)
+    kw = dict(delta=attention_delta(o, do)) if split else dict(o=o, do=do)
+    before = flash_project_bf16.launches
+    got = flash_project_bf16(q, k, scale, lse=lse, **kw)
+    want = flash_project_bf16_ref(q, k, scale, lse=lse, **kw)
+    torch.cuda.synchronize()
+    assert flash_project_bf16.launches == before + 1
+    assert (got[1] is None) == split == (want[1] is None)
+    for a, r in zip(got[:2], want[:2]):
+        if r is not None:
+            assert a.shape == (b * h, t, d) and a.dtype == torch.bfloat16
+            assert torch.equal(as_bytes(a), as_bytes(r))
+    assert torch.equal(got[2], want[2])
+    if split:
+        assert torch.equal(got[3], want[3])
+    else:
+        torch.testing.assert_close(got[3], want[3], rtol=1e-4, atol=1e-4)
