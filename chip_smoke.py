@@ -11,14 +11,15 @@ Phases (any failure raises, and the script exits non-zero with no result):
                compute capability 9.0; TF32 off for matmuls and cuDNN;
 2. build    — compiles the seven kernel sources from nvit_tpu_torch/csrc/,
                one nvcc per source, all started together, and prints ptxas's
-               registers, shared memory and spills of the wgmma attention
-               kernels (K1/K2/K5 and K7/K8/K9, on the tile loops of
-               attn_fwd.cuh and attn_bwd.cuh) and their projection
-               prologues, which must not spill;
+               registers, shared memory and spills of the wgmma kernels —
+               the attention kernels (K1/K2/K5 and K7/K8/K9, on the tile
+               loops of attn_fwd.cuh and attn_bwd.cuh), their projection
+               prologues and the gated-MLP GEMMs (K3/K4/K6, on the main loop
+               of gated_gemm.cuh) — which must not spill;
 3. kernels  — K1/K2 (QK-norm flash attention fwd/bwd, on contiguous and
                strided QKV inputs; K2 and K5's backward bit-equal across two
                calls), their projection prologue, K3/K4 (gated MLP
-               fwd/bwd), K5 (the bounded arm of K1/K2, with the clamp inert
+               fwd/bwd; with K6, bit-equal across two calls), K5 (the bounded arm of K1/K2, with the clamp inert
                and firing in whole rows; "auto" on both sides of its gate),
                K6 (K3/K4 with a bias), K7 (flash attention fwd), K8 and K9
                (its fused and split backward, one source; below one tile too;
@@ -50,7 +51,9 @@ biases from a seed:
 7. times    — each of the path's kernels against its twin, the unfused chain
                and (attention) PyTorch's fused SDPA, by CUDA events (K9 at
                T = 1100, where the JAX package takes it; path A times K5 and
-               K6); forward latency at batch 1 and 32 and img/s on the kernel
+               K6; beside each gated kernel cuBLAS's bare [n, 2H] GEMM, a
+               yardstick, and once K3/K4 at nViT-L's c_fc width against their
+               unfused chains, the gated_mlp_kernel="auto" crossover); forward latency at batch 1 and 32 and img/s on the kernel
                and plain paths;
 8. train    — training at batch 32, bf16: one make_train_step step launches
                the path's four kernels (K1–K4, K7/K8/K3/K4, or K1/K2/K6) 13
@@ -150,7 +153,8 @@ KERNELS = {  # summary name → (source, TPU kernel it replaces)
 # bytes of spill (mangled-name substrings)
 NO_SPILL = ("qknorm_attn_fwd_kernel", "qknorm_attn_bwd_dkv_kernel", "qknorm_attn_bwd_dq_kernel",
             "qknorm_project_kernel", "flash_attn_fwd_kernel", "flash_attn_bwd_dkv_kernel",
-            "flash_attn_bwd_dq_kernel", "flash_project_kernel")
+            "flash_attn_bwd_dq_kernel", "flash_project_kernel", "gated_mlp_fwd_kernel",
+            "gated_mlp_bwd_kernel")
 SOURCES = sorted({Path(src).stem for src, _ in KERNELS.values()})
 # the kernels each path's serving forward and training step launch, 13 times
 # each (12 blocks + the shared cross-attention) for every time they are
@@ -433,6 +437,16 @@ def kernel_phase() -> dict:
         torch.testing.assert_close(duv.float(), duv_ref.float(), **KERNEL_TOL)
         errs["gated_mlp_fwd"] = max(errs["gated_mlp_fwd"], e3)
         errs["gated_mlp_bwd"] = max(errs["gated_mlp_bwd"], e4)
+    # no split-K and no atomics: two calls give the same bytes, K3/K4 and K6 alike
+    x, w = mlp_inputs(2 * 784, 768, 3072, seed=10)
+    g, bias = mlp_grad(2 * 784, 3072, seed=11), bias_inputs(3072, seed=12)
+    calls = {"K3": lambda: gated_mlp_fwd(x, w), "K4": lambda: gated_mlp_bwd_duv(x, w, g),
+             "K6": lambda: gated_mlp_fwd(x, w, bias), "K6 backward": lambda: gated_mlp_bwd_duv(x, w, g, bias)}
+    same = {name: bit_equal([fn()], [fn()]) for name, fn in calls.items()}
+    torch.cuda.synchronize()
+    print(f"K3 / K4 / K6 / K6 backward [n={2 * 784}, K=768, H=3072]: two calls bit-equal: "
+          f"{' / '.join(str(v) for v in same.values())}")
+    check(all(same.values()), f"gated MLP kernels: two calls on the same inputs differ: {same}")
 
     # the autograd Functions: a CUDA forward carries gradients (K2, K4), and
     # they agree with autograd through the plain twins on the same tensors
@@ -894,15 +908,48 @@ def serve_phase(title, path, cfg, pred, plain) -> dict:
     return launches
 
 
-def unfused_gate_bwd(x, w, g, b=None):
-    """The gated_mlp_kernel="off" chain's work for K4's (K6's) function: the
-    cuBLAS bf16 GEMM recompute of [u | v] (+ b), then the gate's backward in
-    bf16 as autograd runs it (mul and SiLU backward) and the cat of du and
-    dv."""
-    uv = torch.nn.functional.linear(x, w)
-    u, v = torch.chunk(uv if b is None else uv + b, 2, dim=-1)
-    sig = torch.sigmoid(v)
-    return torch.cat([g * torch.nn.functional.silu(v), (g * u) * (sig * (1 + v * (1 - sig)))], dim=-1)
+def gated_times(what: str, n: int, d: int, hidden: int, seed: int, with_bias: bool) -> tuple[dict, dict]:
+    """K3 and K4 (with a bias: K6 and its backward) at [n, K=d, H=hidden]
+    against their twins, the unfused chains and cuBLAS's bare [n, 2H] GEMM
+    (a yardstick only: not the same function, so not library_ms) → the two
+    kernels' {ms, plain_ms, library_ms, bound_ms, bound_by}."""
+    import torch.nn.functional as F
+
+    from nvit_tpu_torch.ops.gated_mlp import (
+        gated_mlp_bwd_duv,
+        gated_mlp_duv_ref,
+        gated_mlp_fwd,
+        gated_mlp_ref,
+        gated_mlp_xla,
+    )
+    # the gated_mlp_kernel="off" chain's work for K4's (K6's) function
+    from nvit_tpu_torch.scripts.gated_mlp_bench import unfused_bwd
+
+    x, w = mlp_inputs(n, d, hidden, seed=seed)
+    bias = bias_inputs(hidden, seed=seed + 1) if with_bias else None
+    g = mlp_grad(n, hidden, seed=seed + 2)
+    gemm = cuda_ms(lambda: F.linear(x, w))
+    fwd = dict(ms=cuda_ms(lambda: gated_mlp_fwd(x, w, bias)), plain_ms=cuda_ms(lambda: gated_mlp_ref(x, w, bias)),
+               library_ms=None)
+    # the gated_mlp_kernel="off" chain: cuBLAS bf16 matmul, (+ bias,) then a bf16 gate
+    fwd_off = cuda_ms(lambda: gated_mlp_xla(x, w, bias))
+    bwd = dict(ms=cuda_ms(lambda: gated_mlp_bwd_duv(x, w, g, bias)),
+               plain_ms=cuda_ms(lambda: gated_mlp_duv_ref(x, w, g, bias)), library_ms=None)
+    bwd_off = cuda_ms(lambda: unfused_bwd(x, w, g, bias))
+    del x, w, g, bias
+    # the bias: 2H more bf16 values in, 2·n·H more fp32 adds
+    flops = 4 * n * d * hidden + (2 * n * hidden if with_bias else 0)
+    nbytes = (n * d + 2 * hidden * d + (2 * hidden if with_bias else 0)) * 2
+    fwd.update(zip(("bound_ms", "bound_by"), bound(flops, nbytes + n * hidden * 2)))
+    bwd.update(zip(("bound_ms", "bound_by"), bound(flops, nbytes + 3 * n * hidden * 2)))
+    names = ("K6", "K6 backward") if with_bias else ("K3", "K4")
+    for name, tm, off, chain in ((names[0], fwd, fwd_off, "unfused bf16 chain"),
+                                 (names[1], bwd, bwd_off, "unfused chain (cuBLAS recompute + bf16 gate backward)")):
+        print(f"{name} {what} [n={n}, K={d}, H={hidden}]: kernel {tm['ms']:.4f} ms, plain twin "
+              f"{tm['plain_ms']:.4f} ms, {chain} {off:.4f} ms ({off / tm['ms']:.2f}x the kernel's), cuBLAS bare "
+              f"[n, 2H] GEMM {gemm:.4f} ms; bound {tm['bound_ms']:.4f} ms ({tm['bound_by']}), kernel at "
+              f"{100 * tm['bound_ms'] / tm['ms']:.1f}% of it")
+    return fwd, bwd
 
 
 def time_phase(cfg, pred, plain) -> dict:
@@ -920,13 +967,6 @@ def time_phase(cfg, pred, plain) -> dict:
         qknorm_attention_fwd,
         qknorm_project_bf16,
         qknorm_project_bf16_ref,
-    )
-    from nvit_tpu_torch.ops.gated_mlp import (
-        gated_mlp_bwd_duv,
-        gated_mlp_duv_ref,
-        gated_mlp_fwd,
-        gated_mlp_ref,
-        gated_mlp_xla,
     )
 
     phase("times, nViT")
@@ -979,26 +1019,13 @@ def time_phase(cfg, pred, plain) -> dict:
 
     n = b * t
     for hidden, what in ((4 * d, "c_fc"), (d, "proj")):
-        x, w = mlp_inputs(n, d, hidden, seed=2)
-        g = mlp_grad(n, hidden, seed=4)
-        k3 = cuda_ms(lambda: gated_mlp_fwd(x, w))
-        k3_plain = cuda_ms(lambda: gated_mlp_ref(x, w))
-        # the gated_mlp_kernel="off" chain: cuBLAS bf16 matmul, then a bf16 gate
-        k3_off = cuda_ms(lambda: gated_mlp_xla(x, w))
-        k4 = cuda_ms(lambda: gated_mlp_bwd_duv(x, w, g))
-        k4_plain = cuda_ms(lambda: gated_mlp_duv_ref(x, w, g))
-        k4_off = cuda_ms(lambda: unfused_gate_bwd(x, w, g))
-        print(f"K3 {what} [n={n}, K={d}, H={hidden}]: kernel {k3:.4f} ms, plain twin {k3_plain:.4f} ms, "
-              f"unfused bf16 chain {k3_off:.4f} ms")
-        print(f"K4 {what} [n={n}, K={d}, H={hidden}]: kernel {k4:.4f} ms, plain twin {k4_plain:.4f} ms, "
-              f"unfused chain (cuBLAS recompute + bf16 gate backward) {k4_off:.4f} ms")
+        fwd, bwd = gated_times(what, n, d, hidden, seed=2, with_bias=False)
         if what == "c_fc":
-            flops = 4 * n * d * hidden
-            times["gated_mlp_fwd"] = dict(ms=k3, plain_ms=k3_plain, library_ms=None, **dict(zip(
-                ("bound_ms", "bound_by"), bound(flops, (n * d + 2 * hidden * d + n * hidden) * 2))))
-            times["gated_mlp_bwd"] = dict(ms=k4, plain_ms=k4_plain, library_ms=None, **dict(zip(
-                ("bound_ms", "bound_by"), bound(flops, (n * d + 2 * hidden * d + 3 * n * hidden) * 2))))
-        del x, w, g
+            times["gated_mlp_fwd"], times["gated_mlp_bwd"] = fwd, bwd
+    # gated_mlp_kernel="auto" takes the kernels up to n_embd 768: nViT-L's
+    # c_fc (d = 1024, H = 4096) against the unfused chains
+    gated_times("c_fc at nViT-L width", n, 1024, 4096, seed=9, with_bias=False)
+    torch.cuda.empty_cache()
     print_bounds(times)
     forward_latency(cfg, pred, plain)
     return times
@@ -1120,13 +1147,6 @@ def bias_bounded_time_phase(cfg, pred, plain) -> dict:
 
     from nvit_tpu_torch.ops import flash_attention as fa
     from nvit_tpu_torch.ops.attention import attention_qknorm, qknorm_project
-    from nvit_tpu_torch.ops.gated_mlp import (
-        gated_mlp_bwd_duv,
-        gated_mlp_duv_ref,
-        gated_mlp_fwd,
-        gated_mlp_ref,
-        gated_mlp_xla,
-    )
 
     phase("times, bias (K6) and bounded (K5) kernels")
     b = 32
@@ -1136,27 +1156,9 @@ def bias_bounded_time_phase(cfg, pred, plain) -> dict:
     times = {}
     n = b * t
     for hidden, what in ((4 * d, "c_fc"), (d, "proj")):
-        x, w = mlp_inputs(n, d, hidden, seed=5)
-        bias = bias_inputs(hidden, seed=6)
-        g = mlp_grad(n, hidden, seed=7)
-        k6 = cuda_ms(lambda: gated_mlp_fwd(x, w, bias))
-        k6_plain = cuda_ms(lambda: gated_mlp_ref(x, w, bias))
-        k6_off = cuda_ms(lambda: gated_mlp_xla(x, w, bias))
-        k6b = cuda_ms(lambda: gated_mlp_bwd_duv(x, w, g, bias))
-        k6b_plain = cuda_ms(lambda: gated_mlp_duv_ref(x, w, g, bias))
-        k6b_off = cuda_ms(lambda: unfused_gate_bwd(x, w, g, bias))
-        print(f"K6 {what} [n={n}, K={d}, H={hidden}]: kernel {k6:.4f} ms, plain twin {k6_plain:.4f} ms, "
-              f"unfused bf16 chain {k6_off:.4f} ms")
-        print(f"K6 backward {what} [n={n}, K={d}, H={hidden}]: kernel {k6b:.4f} ms, plain twin "
-              f"{k6b_plain:.4f} ms, unfused chain (cuBLAS recompute + bias + bf16 gate backward) {k6b_off:.4f} ms")
-        if what == "c_fc":  # the bias: 2H more bf16 values in, 2·n·H more fp32 adds
-            flops = 4 * n * d * hidden + 2 * n * hidden
-            times["gated_mlp_fwd_bias"] = dict(ms=k6, plain_ms=k6_plain, library_ms=None, **dict(zip(
-                ("bound_ms", "bound_by"), bound(flops, (n * d + 2 * hidden * d + 2 * hidden + n * hidden) * 2))))
-            times["gated_mlp_bwd_bias"] = dict(ms=k6b, plain_ms=k6b_plain, library_ms=None, **dict(zip(
-                ("bound_ms", "bound_by"),
-                bound(flops, (n * d + 2 * hidden * d + 2 * hidden + 3 * n * hidden) * 2))))
-        del x, w, g, bias
+        fwd, bwd = gated_times(what, n, d, hidden, seed=5, with_bias=True)
+        if what == "c_fc":
+            times["gated_mlp_fwd_bias"], times["gated_mlp_bwd_bias"] = fwd, bwd
 
     q, k, v, sqk, do = qkv_view_inputs(b, h, t, hd, seed=8)
     qh, kh = qknorm_project(q, k, sqk, v.dtype)

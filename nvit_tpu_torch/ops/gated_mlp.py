@@ -179,7 +179,8 @@ def gated_mlp_bwd_duv(
     _check_bias(name, b, h)
     if tuple(g.shape) != (n, h) or g.dtype != torch.bfloat16 or not g.is_cuda:
         raise ValueError(f"{name} takes a bf16 CUDA g of shape {(n, h)}, got {g.dtype} {tuple(g.shape)}")
-    g = g.contiguous()
+    if not g.is_contiguous() or g.data_ptr() % 16:  # the kernel reads g by TMA: 16-byte aligned rows
+        g = g.clone(memory_format=torch.contiguous_format)
     duv = torch.empty((n, 2 * h), dtype=torch.bfloat16, device=x.device)
     fn = load_library("gated_mlp_bwd").nvit_gated_mlp_bwd
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]

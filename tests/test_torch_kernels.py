@@ -10,6 +10,8 @@ package's XLA functions.  Inputs are made from a seed with numpy and handed
 to both frameworks.
 """
 
+from unittest import mock
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -293,6 +295,19 @@ def test_k4_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         gated_mlp_bwd_duv(x, w, torch.zeros(16, 64, dtype=torch.bfloat16))
     assert gated_mlp_bwd_duv.launches == before
+
+
+def test_gated_bench_unfused_backward_is_the_gate_vjp():
+    """The bench's unfused backward chain computes K4's function: in fp32 it
+    is gated_mlp_duv_ref; the bench refuses to run without a card."""
+    from nvit_tpu_torch.scripts import gated_mlp_bench
+
+    x, w = (torch.from_numpy(a) for a in mlp_inputs(36, n=16, k=64, h=64))
+    g = torch.from_numpy(np.random.default_rng(37).standard_normal((16, 64)).astype(np.float32))
+    torch.testing.assert_close(gated_mlp_bench.unfused_bwd(x, w, g), gated_mlp_duv_ref(x, w, g),
+                               rtol=1e-5, atol=1e-5)
+    with mock.patch.object(torch.cuda, "is_available", return_value=False):
+        assert gated_mlp_bench.main([]) == 1
 
 
 def test_fused_qkv_gradient_is_k2s_buffer_without_a_copy():

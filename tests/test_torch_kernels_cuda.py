@@ -1,5 +1,5 @@
 """Card-only tests: the port's CUDA kernels (K1–K10 and the projection
-prologues) against their plain twins, K2/K5/K8/K9/K10 bit-deterministic,
+prologues) against their plain twins, K2–K6 and K8–K10 bit-deterministic,
 the autograd Functions' gradients, and one flagship-width Block's backward in
 each mode, with and without a bias and the bounded softmax.
 
@@ -86,6 +86,9 @@ def test_k1_rejects_what_it_does_not_take(cuda):
     (70, 48, 64),          # K % 32 == 16: a last K step of 16, zero-filled
     (784 + 17, 768, 768),  # ragged rows at the cross-attention proj width
     (2 * 784, 768, 3072),  # c_fc width
+    (17, 80, 192),         # below one 128-row tile; K tail of 16 past a 64-step; a 64-wide column tail
+    (784, 48, 192),        # batch 1's ragged 16 rows; K = 48, short of one 64-step; a column tail
+    (4 * 784, 768, 3072),  # c_fc width at batch 4
 ])
 def test_k3_matches_twin(cuda, n, k, h):
     from nvit_tpu_torch.ops.gated_mlp import gated_mlp_fwd, gated_mlp_ref
@@ -153,6 +156,9 @@ def test_k2_matches_twin(cuda, b, h, t, d, view):
     (70, 48, 64),          # K % 32 == 16
     (784 + 17, 768, 768),  # ragged rows at the cross-attention proj width
     (2 * 784, 768, 3072),  # c_fc width
+    (17, 80, 192),         # below one 128-row tile; K tail of 16 past a 64-step; a 64-wide column tail
+    (784, 48, 192),        # batch 1's ragged 16 rows; K = 48, short of one 64-step; a column tail
+    (4 * 784, 768, 3072),  # c_fc width at batch 4
 ])
 def test_k4_matches_twin(cuda, n, k, h):
     from nvit_tpu_torch.ops.gated_mlp import gated_mlp_bwd_duv, gated_mlp_duv_ref
@@ -166,6 +172,22 @@ def test_k4_matches_twin(cuda, n, k, h):
     torch.cuda.synchronize()
     assert duv.shape == (n, 2 * h) and duv.dtype == torch.bfloat16
     torch.testing.assert_close(duv.float(), ref.float(), **BF16_TOL)
+
+
+@pytest.mark.cuda
+def test_k4_takes_a_misaligned_g(cuda):
+    """A g whose data starts off a 16-byte boundary (a view into a larger
+    buffer, as an upstream split can hand it) is copied, not refused."""
+    from nvit_tpu_torch.ops.gated_mlp import gated_mlp_bwd_duv, gated_mlp_duv_ref
+
+    g = torch.Generator(device="cpu").manual_seed(5)
+    x = torch.randn(100, 128, generator=g).to(cuda, torch.bfloat16)
+    w = (torch.randn(2 * 192, 128, generator=g) / 128 ** 0.5).to(cuda, torch.bfloat16)
+    buf = torch.randn(100 * 192 + 1, generator=g).to(cuda, torch.bfloat16)
+    gy = buf[1:].view(100, 192)
+    assert gy.is_contiguous() and gy.data_ptr() % 16
+    duv = gated_mlp_bwd_duv(x, w, gy)
+    torch.testing.assert_close(duv.float(), gated_mlp_duv_ref(x, w, gy).float(), **BF16_TOL)
 
 
 @pytest.mark.cuda
@@ -399,6 +421,9 @@ def mlp_bias_inputs(n, k, h, device, seed):
     (70, 48, 64),          # K % 32 == 16
     (784 + 17, 768, 768),  # ragged rows at the cross-attention proj width
     (2 * 784, 768, 3072),  # c_fc width
+    (17, 80, 192),         # below one 128-row tile; K tail of 16 past a 64-step; a 64-wide column tail
+    (784, 48, 192),        # batch 1's ragged 16 rows; K = 48, short of one 64-step; a column tail
+    (4 * 784, 768, 3072),  # c_fc width at batch 4
 ])
 def test_k6_matches_twins(cuda, n, k, h):
     """K6 forward and backward ([du | dv]) against gated_mlp_ref /
@@ -762,3 +787,19 @@ def test_flash_project_matches_twin(cuda, b, h, t, d, split):
         assert torch.equal(got[3], want[3])
     else:
         torch.testing.assert_close(got[3], want[3], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K3", "K4", "K6", "K6 backward"])
+def test_gated_mlp_kernels_are_deterministic(cuda, kernel):
+    """No split-K and no atomics in K3, K4 or K6: two calls give the same bytes."""
+    from nvit_tpu_torch.ops.gated_mlp import gated_mlp_bwd_duv, gated_mlp_fwd
+
+    x, w, b, gy = mlp_bias_inputs(2 * 784, 768, 3072, cuda, seed=31)
+    b = b if kernel.startswith("K6") else None
+    if kernel.endswith("backward") or kernel == "K4":
+        got, again = (gated_mlp_bwd_duv(x, w, gy, b) for _ in range(2))
+    else:
+        got, again = (gated_mlp_fwd(x, w, b) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(as_bytes(got), as_bytes(again))
