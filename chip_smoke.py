@@ -12,8 +12,8 @@ Phases (any failure raises, and the script exits non-zero with no result):
 2. build    — compiles the seven kernel sources from nvit_tpu_torch/csrc/,
                one nvcc per source, all started together, and prints ptxas's
                registers, shared memory and spills of the wgmma kernels —
-               the attention kernels (K1/K2/K5 and K7/K8/K9, on the tile
-               loops of attn_fwd.cuh and attn_bwd.cuh), their projection
+               the attention kernels (K1/K2/K5, K7/K8/K9 and K10, on the
+               tile loops of attn_fwd.cuh and attn_bwd.cuh), their projection
                prologues and the gated-MLP GEMMs (K3/K4/K6, on the main loop
                of gated_gemm.cuh) — which must not spill;
 3. kernels  — K1/K2 (QK-norm flash attention fwd/bwd, on contiguous and
@@ -37,7 +37,8 @@ Phases (any failure raises, and the script exits non-zero with no result):
                bench's K10 calls and K2's and K5's only by its integrated
                calls;
 5. times    — K10 at nsplit 2 and 7 against K2 and K5's backward in turns,
-               its twin, the unfused chain and SDPA's backward;
+               its twin, the unfused chain and SDPA's backward; K10's and
+               K2's device time by kernel (torch.profiler);
 then for each full path — nViT-B/16 (``use_nvit=True``), the baseline
 ViT-B/16 (``flagship_config(use_nvit=False)``) and path A, nViT-B/16 as
 settings.yaml runs it (``flagship_config(bias=True)``), random weights and
@@ -152,6 +153,7 @@ KERNELS = {  # summary name → (source, TPU kernel it replaces)
 # the wgmma kernels whose ptxas report the build phase prints and holds to 0
 # bytes of spill (mangled-name substrings)
 NO_SPILL = ("qknorm_attn_fwd_kernel", "qknorm_attn_bwd_dkv_kernel", "qknorm_attn_bwd_dq_kernel",
+            "qknorm_attn_bwd_subtiled_kernel", "qknorm_attn_bwd_subtiled_dq_kernel",
             "qknorm_project_kernel", "flash_attn_fwd_kernel", "flash_attn_bwd_dkv_kernel",
             "flash_attn_bwd_dq_kernel", "flash_project_kernel", "gated_mlp_fwd_kernel",
             "gated_mlp_bwd_kernel")
@@ -743,8 +745,8 @@ def bench_phase() -> int:
     """The port of scripts/attn_bwd_split_bench.py on the card, in this
     process; its asserts are not caught.  K10's counter rises by exactly the
     bench's K10 calls, K2's and K5's only by its integrated calls, K5's
-    forward once, the projection prologue before each of those → K10's
-    launches in the bench."""
+    forward once, the projection prologue before each of those and each K10
+    call → K10's launches in the bench."""
     from nvit_tpu_torch.scripts import attn_bwd_split_bench as bench
 
     phase("bench: python -m nvit_tpu_torch.scripts.attn_bwd_split_bench")
@@ -755,7 +757,7 @@ def bench_phase() -> int:
     print(f"launches in the bench: {launches}; the bench's calls: {calls}")
     check_launches(launches, {"qknorm_attn_bwd_subtiled": calls["subtiled"], "qknorm_attn_bwd": calls["rowmax"],
                               "qknorm_attn_bwd_bounded": calls["integrated"], "qknorm_attn_fwd_bounded": 1,
-                              "qknorm_project": 1 + calls["rowmax"] + calls["integrated"]},
+                              "qknorm_project": 1 + calls["rowmax"] + calls["integrated"] + calls["subtiled"]},
                    "the bench")
     check(calls["subtiled"] > 0, "the bench launched no K10")
     torch.cuda.empty_cache()
@@ -766,10 +768,13 @@ def subtiled_time_phase() -> dict:
     """K10 (nsplit 2 and 7) against K2 and K5's backward in turns, at the
     bench's shape, then its twin, the flash_attn=False chain and SDPA's
     backward on the projected q̂/k̂ (library_ms: a yardstick, used nowhere in
-    the port).  bound_ms counts the function's bytes (K2's); the design's
-    dq̂ partial buffer, written once and read once, is counted apart."""
+    the port); K10's and K2's device time by kernel (torch.profiler): the
+    one-pass walk and the dq̂ sum against K2's two walks.  bound_ms counts
+    the function's bytes (K2's); the design's dq̂ partial buffer, written
+    once and read once, is counted apart."""
     import torch.nn.functional as F
 
+    from nvit_tpu_torch.obs.profile_step import profile
     from nvit_tpu_torch.ops import flash_attention as fa
     from nvit_tpu_torch.ops.attention import attention_qknorm, qknorm_project
 
@@ -788,6 +793,10 @@ def subtiled_time_phase() -> dict:
     for name in [*arms, *reversed(arms)]:  # in turns: drift on the card hits every arm alike
         runs[name].append(cuda_ms(arms[name]))
     ms = {name: statistics.mean(x) for name, x in runs.items()}
+    for name in ("K2", "K10 nsplit=2", "K10 nsplit=7"):
+        kernels = profile(arms[name], 5)[2]
+        print(f"{name} by kernel (torch.profiler, device ms per call): " + "; ".join(
+            f"{key.replace('void (anonymous namespace)::', '').split('(')[0][:48]} {t:.4f}" for key, t, _ in kernels))
     plain = cuda_ms(lambda: fa.qknorm_attention_bwd_subtiled_ref(q, k, v, sqk, scale, o, lse, do, 2), iters=5)
     leaves = [x.detach().clone().requires_grad_() for x in (q, k, v, sqk)]
     out = attention_qknorm(*leaves, scale, use_flash=False)
@@ -804,11 +813,11 @@ def subtiled_time_phase() -> dict:
           f"{ms['K10 nsplit=2'] / ms['K2']:.3f}, nsplit 7 / K2 {ms['K10 nsplit=7'] / ms['K2']:.3f}")
     flops = 10 * b * h * t * t * d
     nbytes = 8 * b * h * t * d * 2 + b * h * t * 4 + h * d * 4 + b * h * d * 4
-    partials = 2 * b * h * -(-t // fa.BLOCK) * t * d * 4
+    partials = 2 * b * h * -(-t // fa.BLOCK) * len(fa.subtile_chunks(t, 2)) * fa.BLOCK * d * 4
     bound_ms, bound_by = bound(flops, nbytes)
     design_ms, design_by = bound(flops, nbytes + partials)
-    print(f"K10 bound {bound_ms:.4f} ms ({bound_by}); with the dq̂ partial buffer ({partials / 2**30:.3f} GiB "
-          f"written and read) {design_ms:.4f} ms ({design_by})")
+    print(f"K10 bound {bound_ms:.4f} ms ({bound_by}); with the dq̂ partial buffer at nsplit 2 "
+          f"({partials / 2 / 2**30:.3f} GiB, written once and read once) {design_ms:.4f} ms ({design_by})")
     del q, k, v, do, o, lse, o_b, lse_b, leaves, out, qh, kh, vv
     torch.cuda.empty_cache()
     return {"qknorm_attn_bwd_subtiled": dict(

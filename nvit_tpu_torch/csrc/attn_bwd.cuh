@@ -1,5 +1,5 @@
 // The flash-attention backward tile walks — Hopper (sm_90a), on hopper.cuh —
-// shared by K2/K5 (qknorm_attn_bwd.cu) and K8/K9 (flash_attn_bwd.cu).  Given
+// shared by K2/K5 and K10 (qknorm_attn_bwd.cu) and K8/K9 (flash_attn_bwd.cu).  Given
 // the forward's lse, dO, Δ = rowsum(dO ∘ O) and the bf16 operands, per (b, h):
 //
 //   S = Q Kᵀ   P = exp(S − lse)   dP = dO Vᵀ   dS = P ⊙ (dP − Δ)
@@ -41,6 +41,10 @@
 // The two walks each recompute S and dP (7 products instead of 5): the price
 // of keeping dQ out of atomics.  S, dP, P, dS and the gradients never touch
 // shared memory.
+// K10 runs dkv_walk alone, over its q sub-tiles' chunks (Chunks) instead of
+// whole 64-row tiles, with a fifth product (a dq strategy, SplitDq): dSᵀ is
+// stored once as a bf16 tile that dK' and that key tile's share of dq̂ read;
+// the shares are summed over the key tiles outside the walk.
 //
 // Ragged T: query columns past T get P = 0 (their dO and Δ rows are zero
 // too); key rows past T are computed on zero-filled tiles and never stored.
@@ -66,9 +70,9 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float BOUNDED_EXP_FLOOR = -60.0f;  // ≙ flash_attention.py _BOUNDED_EXP_FLOOR
 
-// (batch, head, token) element strides of the eight [B, H, T, D] operands
+// (batch, head, token) element strides of the seven [B, H, T, D] operands
 struct Strides {
-  int64_t q[3], k[3], v[3], o[3], dO[3], dq[3], dk[3], dv[3];
+  int64_t q[3], k[3], v[3], dO[3], dq[3], dk[3], dv[3];
 };
 
 // The recomputed softmax entry exp(s − lse), or K5's clamped form
@@ -80,48 +84,98 @@ __device__ __forceinline__ float recompute_p2(float s, float c, float b2) {
   return exp2f(fmaf(s, LOG2E, c));
 }
 
-// byte offsets in the dK/dV block's 1024-aligned dynamic shared memory
-template <int D>
+// byte offsets in the dK/dV block's 1024-aligned dynamic shared memory;
+// SPLIT_DQ (K10) adds K2's tile (the dq̂ product's B) and the bf16 dSᵀ tile
+// (the A of dK' and of the dq̂ product) beside K and V
+template <int D, bool SPLIT_DQ = false>
 struct LayoutKV {
   static constexpr int TILE = BLOCK * D * 2;  // one swizzled 64-row bf16 tile
   static constexpr int KH = 0, V = TILE;      // this block's K and V, the whole walk
-  static constexpr int STAGES = 2 * TILE;     // stage s at STAGES + s·STAGE: Q, dO, lse, Δ
+  static constexpr int K2 = 2 * TILE;         // SPLIT_DQ: this block's K2, the whole walk
+  static constexpr int DS = 3 * TILE;         // SPLIT_DQ: bf16 dSᵀ [64 keys][64 queries]
+  static constexpr int STAGES = SPLIT_DQ ? 3 * TILE + BLOCK * BLOCK * 2 : 2 * TILE;
+  // stage s at STAGES + s·STAGE: Q, dO, lse, Δ
   static constexpr int STAGE = (2 * TILE + 2 * BLOCK * 4 + 1023) / 1024 * 1024;
   static constexpr int BYTES = STAGES + 2 * STAGE + 1024;  // + alignment slack
 };
 
+// The query walks of dkv_walk.  A walk is a sequence of query tiles of at
+// most 64 rows; tile m holds rows [start(m), start(m) + 64) of which those
+// below end(m) are live, the rest zero-filled with P = 0.
+//
+// WholeT (K2/K5, K8, K9): every 64-row tile of [0, T), rows past T dead.
+struct WholeT {
+  int T, n;  // rows, tiles
+  __device__ __forceinline__ int count() const { return n; }
+  __device__ __forceinline__ int start(int m) const { return m * BLOCK; }
+  __device__ __forceinline__ int end(int) const { return T; }
+  static constexpr bool GUARD_STATS = false;  // the padded lse/Δ rows are read whole
+};
+
+// Chunks (K10): the q sub-tiles in order, each cut into chunks of at most 64
+// rows that never cross a sub-tile's end; chunk m is rows [start[m],
+// start[m + 1]), every start a multiple of 16 — a table the host builds
+// (flash_attention.py::subtile_chunks) and the kernel takes by value.  A
+// chunk's lse/Δ rows past its end are zero-filled, not read: the last chunk
+// may start 16 rows before T_pad.
+constexpr int MAX_CHUNKS = 1024;
+struct Chunks {
+  int n;
+  int16_t starts[MAX_CHUNKS + 1];  // starts[n] = T
+  __device__ __forceinline__ int count() const { return n; }
+  __device__ __forceinline__ int start(int m) const { return starts[m]; }
+  __device__ __forceinline__ int end(int m) const { return starts[m + 1]; }
+  static constexpr bool GUARD_STATS = true;
+};
+
+// dkv_walk's dq strategy.  NoDq: none (K2/K5, K8, K9 take dq in a walk of
+// their own).  A strategy gets load(base) once, beside K and V, before the
+// walk; then per query tile m: prepare() before the products are issued;
+// issue() right after the dV/dK' products, inside the same wgmma group —
+// with SPLIT_DQ the tile's bf16 dSᵀ is then in LayoutKV's DS tile; and
+// finish(m) once that group has completed.
+struct NoDq {
+  __device__ __forceinline__ void load(uint32_t) {}
+  __device__ __forceinline__ void prepare() {}
+  __device__ __forceinline__ void issue() {}
+  __device__ __forceinline__ void finish(int) {}
+};
+
 // one query tile's Q (bf16 [T, D] scratch rows), dO and [lse, Δ] rows into a
-// dK/dV stage
-template <int D>
+// dK/dV stage; Q and dO rows from `lim` on are zero-filled, and with
+// GUARD_STATS the lse/Δ rows too
+template <int D, bool GUARD_STATS>
 __device__ __forceinline__ void load_query_stage(uint32_t stage, const bf16* __restrict__ qb,
                                                  const bf16* __restrict__ dOb, int64_t dO_st,
                                                  const float* __restrict__ lseb,
-                                                 const float* __restrict__ deltab, int m0, int T) {
+                                                 const float* __restrict__ deltab, int m0, int lim) {
   using L = LayoutKV<D>;
-  hopper::load_tile<D>(stage, qb, D, m0, T);
-  hopper::load_tile<D>(stage + L::TILE, dOb, dO_st, m0, T);
-  if (threadIdx.x < 2 * BLOCK / 4) {  // 16 chunks of lse, 16 of Δ: padded rows, always in range
+  hopper::load_tile<D>(stage, qb, D, m0, lim);
+  hopper::load_tile<D>(stage + L::TILE, dOb, dO_st, m0, lim);
+  if (threadIdx.x < 2 * BLOCK / 4) {  // 16 chunks of lse, 16 of Δ: padded rows, in range
     const int c = threadIdx.x % (BLOCK / 4);
-    const float* src = (threadIdx.x < BLOCK / 4 ? lseb : deltab) + m0 + 4 * c;
-    hopper::cp_async16(stage + 2 * L::TILE + threadIdx.x * 16, src, true);
+    const bool ok = !GUARD_STATS || m0 + 4 * c < lim;
+    const float* src = (threadIdx.x < BLOCK / 4 ? lseb : deltab) + (ok ? m0 + 4 * c : 0);
+    hopper::cp_async16(stage + 2 * L::TILE + threadIdx.x * 16, src, ok);
   }
 }
 
 // The dK/dV walk of one block, keys n0 .. n0 + 63: K (rows of `kb`, `k_st`
-// apart) and V stay in shared memory while every query tile of Q (bf16
-// [T, D] scratch rows), dO and the padded lse/Δ rows passes through the ring
-// → dV and dK' in hopper.cuh's accumulator layout.  `base`: the block's
-// 1024-aligned shared memory (LayoutKV<D>::BYTES); `bound`: K5's per-head
-// bound when BOUNDED.
-template <int D, bool BOUNDED>
+// apart) and V stay in shared memory while every query tile of `walk` — Q
+// (bf16 [T, D] scratch rows), dO and the padded lse/Δ rows — passes through
+// the ring → dV and dK' in hopper.cuh's accumulator layout; `dq` is the dq
+// strategy (K10's adds a fifth product per tile).  `base`: the block's
+// 1024-aligned shared memory (LayoutKV<D, SPLIT_DQ>::BYTES); `bound`: K5's
+// per-head bound when BOUNDED.
+template <int D, bool BOUNDED, bool SPLIT_DQ, class Walk, class Dq>
 __device__ __forceinline__ void dkv_walk(float (&acc_dv)[D / 2], float (&acc_dk)[D / 2], uint32_t base,
                                          unsigned char* sp, const bf16* __restrict__ kb, int64_t k_st,
                                          const bf16* __restrict__ vb, int64_t v_st,
                                          const bf16* __restrict__ qb, const bf16* __restrict__ dOb,
                                          int64_t dO_st, const float* __restrict__ lseb,
-                                         const float* __restrict__ deltab, int n0, int T, int T_pad,
-                                         float bound) {
-  using L = LayoutKV<D>;
+                                         const float* __restrict__ deltab, int n0, int T, const Walk& walk,
+                                         float bound, Dq& dq) {
+  using L = LayoutKV<D, SPLIT_DQ>;
   constexpr int ROW = 2 * D;
   const int lane = threadIdx.x & 31;
   const int c0 = 2 * (lane & 3);  // this thread's columns 8·j + c0 + c (hopper.cuh)
@@ -129,19 +183,21 @@ __device__ __forceinline__ void dkv_walk(float (&acc_dv)[D / 2], float (&acc_dk)
 
   load_tile<D>(base + L::KH, kb, k_st, n0, T);
   load_tile<D>(base + L::V, vb, v_st, n0, T);
-  load_query_stage<D>(base + L::STAGES, qb, dOb, dO_st, lseb, deltab, 0, T);
+  dq.load(base);
+  load_query_stage<D, Walk::GUARD_STATS>(base + L::STAGES, qb, dOb, dO_st, lseb, deltab, walk.start(0),
+                                         walk.end(0));
   cp_async_commit();
 
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc_dv[i] = acc_dk[i] = 0.f;
-  const int n_tiles = T_pad / BLOCK;
+  const int n_tiles = walk.count();
   for (int m = 0; m < n_tiles; ++m) {
     cp_async_wait<0>();  // query tile m has landed
     fence_proxy_async();
     __syncthreads();     // ... for every thread; and tile m − 1's stage is free
     if (m + 1 < n_tiles)
-      load_query_stage<D>(base + L::STAGES + ((m + 1) & 1) * L::STAGE, qb, dOb, dO_st, lseb, deltab,
-                          (m + 1) * BLOCK, T);
+      load_query_stage<D, Walk::GUARD_STATS>(base + L::STAGES + ((m + 1) & 1) * L::STAGE, qb, dOb, dO_st, lseb,
+                                             deltab, walk.start(m + 1), walk.end(m + 1));
     cp_async_commit();
     const uint32_t q_s = base + L::STAGES + (m & 1) * L::STAGE;
     const uint32_t do_s = q_s + L::TILE;
@@ -167,15 +223,15 @@ __device__ __forceinline__ void dkv_walk(float (&acc_dv)[D / 2], float (&acc_dk)
     fence_operands(s);
 
     // Pᵀ = exp(Sᵀ − lse[query]) (K5: clamped) and dSᵀ = Pᵀ ⊙ (dPᵀ − Δ[query]);
-    // P = 0 for queries past T
-    const int m0 = m * BLOCK;
-    const bool ragged = m0 + BLOCK > T;
+    // P = 0 for queries past the tile's end
+    const int m0 = walk.start(m), lim = walk.end(m);
+    const bool ragged = m0 + BLOCK > lim;
 #pragma unroll
     for (int j = 0; j < BLOCK / 8; ++j)
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
         const int col = 8 * j + c0 + c;
-        const bool live = !ragged || m0 + col < T;
+        const bool live = !ragged || m0 + col < lim;
         const float cl = BOUNDED ? (bound - lse_s[col]) * LOG2E : -lse_s[col] * LOG2E;
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
@@ -202,18 +258,47 @@ __device__ __forceinline__ void dkv_walk(float (&acc_dv)[D / 2], float (&acc_dk)
       pack_a(pa[kk], s, kk);
       pack_a(da[kk], dp, kk);
     }
+    if constexpr (SPLIT_DQ) {  // bf16 dSᵀ into the DS tile, for dK' and the dq strategy
+      store_a_tile(base + L::DS, da);
+      fence_proxy_async();
+      __syncthreads();
+    }
+    dq.prepare();
     fence_operands(acc_dv);
     fence_operands(acc_dk);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BLOCK / 16; ++kk) wgmma_rs(acc_dv, pa[kk], smem_desc<ROW>(do_s + kk * 16 * ROW));
+    if constexpr (SPLIT_DQ) {  // A = the DS tile, K-major: da dies before the products
 #pragma unroll
-    for (int kk = 0; kk < BLOCK / 16; ++kk) wgmma_rs(acc_dk, da[kk], smem_desc<ROW>(q_s + kk * 16 * ROW));
+      for (int kk = 0; kk < BLOCK / 16; ++kk)
+        wgmma_ss_bmn<0>(acc_dk, smem_desc<2 * BLOCK>(base + L::DS + kk * 32),
+                        smem_desc<ROW>(q_s + kk * 16 * ROW), 1);
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < BLOCK / 16; ++kk) wgmma_rs(acc_dk, da[kk], smem_desc<ROW>(q_s + kk * 16 * ROW));
+    }
+    dq.issue();
     wgmma_commit();
     wgmma_wait<0>();
     fence_operands(acc_dv);
     fence_operands(acc_dk);
+    dq.finish(m);
   }
+}
+
+// K2/K5, K8 and K9's dK/dV walk: every 64-row query tile of [0, T), no dq
+template <int D, bool BOUNDED>
+__device__ __forceinline__ void dkv_walk(float (&acc_dv)[D / 2], float (&acc_dk)[D / 2], uint32_t base,
+                                         unsigned char* sp, const bf16* __restrict__ kb, int64_t k_st,
+                                         const bf16* __restrict__ vb, int64_t v_st,
+                                         const bf16* __restrict__ qb, const bf16* __restrict__ dOb,
+                                         int64_t dO_st, const float* __restrict__ lseb,
+                                         const float* __restrict__ deltab, int n0, int T, int T_pad,
+                                         float bound) {
+  NoDq none;
+  dkv_walk<D, BOUNDED, false>(acc_dv, acc_dk, base, sp, kb, k_st, vb, v_st, qb, dOb, dO_st, lseb, deltab, n0, T,
+                              WholeT{T, T_pad / BLOCK}, bound, none);
 }
 
 // byte offsets in the dQ block's 1024-aligned dynamic shared memory; a stage

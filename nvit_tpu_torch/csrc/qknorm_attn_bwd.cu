@@ -40,44 +40,44 @@
 //
 // K10 (nvit_qknorm_attn_bwd_subtiled) replaces scripts/attn_bwd_split_bench.py::
 // _bwd_split_kernel: K2's function in its plain-recompute arm, restructured on
-// the TPU into nsplit independent query sub-tiles (≙ _split_bounds: 16-aligned
-// rows, the last taking the rest), with Δ taken per sub-tile inside the
-// program, dq̂ complete per sub-tile and dV, dk̂ accumulated across them in
-// fp32 — one pass, five products, no Δ pass.  It lives here because it shares
-// K2's math, helpers and layout.  The same [T, D] fp32 accumulators per (b, h)
-// do not fit a block, so it runs one pass per key tile with a split-K dq, in
-// two launches, deterministic and without atomics:
+// the TPU into nsplit query sub-tiles (≙ _split_bounds: 16-aligned rows, the
+// last taking the rest), dq̂ complete per sub-tile and dV, dk̂ accumulated
+// across them in fp32 — one pass, five products.  The [T, D] fp32
+// accumulators of a (b, h) do not fit a block, so K10 is K2's prologue and
+// dK/dV walk with a fifth product, and a split-K dq̂ summed in a second pass:
 //
-// 1. One block per (b·h, 64-key tile), four warps.  The block projects its
-//    keys once (k̂ and k̂_s) and walks the sub-tiles in order, each in chunks
-//    of ≤ 64 query rows (every chunk is a multiple of 16 rows: 112 = 64 + 48).
-//    Per chunk it forms the chunk's Δ from dO and O, then Sᵀ, Pᵀ, dPᵀ and dSᵀ
-//    once (key-major, as K2's dK/dV pass), adds to dV and dk̂ in register
-//    fragments, and writes this key tile's dq̂ share bf16(dS) k̂_s to an fp32
-//    partial buffer [B·H, n_tiles, T, D].  Its epilogue (dkv_epilogue) is K2's
-//    math: the justnorm VJP of dk̂ and the tile's dsqk partial.
-// 2. One block per (b·h, 64-query tile) sums the dq̂ shares over the key tiles
-//    in tile order, applies the justnorm VJP and writes dq and the tile's
-//    Σ_t dq̂ ⊙ qn.
-// Five products instead of K2's seven and two launches instead of three; the
-// price is the partial buffer, 4·n_tiles·T·D bytes per (b, h) written once and
-// read once (0.93 GiB at [384, 784, 64], ~0.6 ms of traffic at 3.35 TB/s).
+// 1. the prologue, as in K2's call.
+// 2. One block (one warpgroup) per (b·h, 64-key tile) walks the sub-tiles in
+//    order, each cut into chunks of ≤ 64 query rows that never cross a
+//    sub-tile's end (112 = 64 + 48; attn_bwd.cuh's Chunks, a table the host
+//    builds).  Per chunk it runs K2's dK/dV step — Sᵀ and dPᵀ on wgmma, Pᵀ
+//    and dSᵀ in registers, dV and dk̂ accumulated in registers — then stores
+//    bf16(dSᵀ) once into a swizzled shared tile and takes this key tile's
+//    share of the chunk's dq̂, bf16(dS)·k̂_s, as m64n{D}k16 wgmmas that read
+//    that tile and the block's resident k̂_s, both MN-major; the share goes
+//    to this (key tile, chunk)'s slot of an fp32 buffer.  The walk's
+//    epilogue is K2's dK/dV epilogue.
+// 3. One block per (b·h, chunk) sums the key tiles' shares in tile order,
+//    applies the justnorm VJP and writes dq and the chunk's Σ_t dq̂ ⊙ qn.
+// No atomics: two calls give the same bytes.
 //
-// K10's kernels keep nvcuda::wmma with every intermediate in shared memory;
-// K2's above run on the wgmma walks (attn_bwd.cuh, hopper.cuh).
+// What bounds K10: its five products are K2's tensor-core and exp/ALU work
+// less two products, but the split-K dq̂ moves 2·4·ceil(T/64)·64·D bytes per
+// (b·h, chunk) through device memory — 1.0 GiB written and read at
+// [384, 784, 64], ~0.6 ms at 3.35 TB/s, of which the second pass's read
+// (~0.39 ms on the H100) does not overlap any product.  Summing the shares
+// in tile order inside the walk instead (key tile j adding to one running
+// sum per chunk after tile j − 1, behind a counter) kept that traffic in L2
+// but stalled the walk longer than the second pass takes (PERF.md §6).
 //
 // Ragged T (784 = 12·64 + 16): query columns past T get P = 0 (their dO and
 // Δ rows are zero too); key rows past T are computed on zero-filled k/v (the
 // 1e-30 floor keeps them finite), never stored and masked out of dsqk.
-// q, k, v, o, dO and the three outputs are addressed through (batch, head,
+// q, k, v, dO and the three outputs are addressed through (batch, head,
 // token) strides with a contiguous head dim, so q/k/v can stay views of the
 // fused QKV projection and dq/dk/dv can land in one [B, T, 3, H, D] buffer.
 
-#include <mma.h>
-
 #include "attn_bwd.cuh"
-
-using namespace nvcuda;
 
 namespace {
 
@@ -87,11 +87,9 @@ constexpr float NORM_EPS = 1e-30f;  // ≙ flash_attention.py _NORM_EPS
 
 template <int D>
 struct Pitch {
-  // padded off a multiple of 128 bytes against bank conflicts; each stays a
-  // multiple of 16 bytes (vector stores) and of wmma's ldm unit
-  static constexpr int H = D + 8;      // bf16 [., D] rows
-  static constexpr int S = BLOCK + 4;  // fp32 [., 64] rows
-  static constexpr int P = BLOCK + 8;  // bf16 [., 64] rows
+  // fp32 [., D] staging rows, padded off a multiple of 128 bytes against
+  // bank conflicts, a multiple of 16 bytes (vector stores)
+  static constexpr int S = D + 4;
 };
 
 // Row t of one head as fp32, half a row (D/2 values) per thread; zeros past T.
@@ -124,36 +122,6 @@ __device__ __forceinline__ float row_norm(const float* x) {
   return fmaxf(sqrtf(ss), NORM_EPS);
 }
 
-// bf16((s·scale) ⊙ (x/norm)) of half a row — K1's multiply order exactly
-template <int D>
-__device__ __forceinline__ void store_projected(bf16* dst, const float* x, float norm,
-                                                const float* __restrict__ s_vec, float scale,
-                                                int half) {
-  constexpr int HALF = D / 2;
-#pragma unroll
-  for (int i = 0; i < HALF / 8; ++i) {
-    uint4 packed;
-    bf16* e = reinterpret_cast<bf16*>(&packed);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int d = half * HALF + i * 8 + j;
-      e[j] = __float2bfloat16((s_vec[d] * scale) * (x[i * 8 + j] / norm));
-    }
-    reinterpret_cast<uint4*>(dst)[i] = packed;
-  }
-}
-
-// raw copy of half of row t (zeros past T)
-template <int D>
-__device__ __forceinline__ void copy_half_row(bf16* dst, const bf16* __restrict__ head, int64_t st,
-                                              int t, int T, int half) {
-  constexpr int HALF = D / 2;
-  uint4* out = reinterpret_cast<uint4*>(dst);
-  const uint4* g = reinterpret_cast<const uint4*>(head + (int64_t)t * st + half * HALF);
-#pragma unroll
-  for (int i = 0; i < HALF / 8; ++i) out[i] = t < T ? g[i] : make_uint4(0u, 0u, 0u, 0u);
-}
-
 // half a row of fp32 values → bf16 in device memory
 template <int D>
 __device__ __forceinline__ void store_half_row_bf16(bf16* dst, const float* x) {
@@ -167,11 +135,11 @@ __device__ __forceinline__ void store_half_row_bf16(bf16* dst, const float* x) {
   }
 }
 
-// Epilogue shared by both passes, for the row whose halves sit in lanes 2r and
+// The epilogues' row step, for the row whose halves sit in lanes 2r and
 // 2r + 1: from the fp32 gradient g = dx̂ (half row in shared memory) and the
 // raw input row t, write dx = (s⊙g − xn·Σ(xn ⊙ s⊙g))/‖x‖ to `out` (half row
 // t of the output) and overwrite g in place with its dsqk contribution
-// g ⊙ xn (zero past T).
+// g ⊙ xn (zero from T on).
 template <int D>
 __device__ __forceinline__ void justnorm_vjp_row(float* g, const bf16* __restrict__ head, int64_t st,
                                                  bf16* __restrict__ out, int t, int T, int half,
@@ -225,135 +193,6 @@ __device__ __forceinline__ void write_dsqk_partial(const float* contrib, float* 
   }
 }
 
-// ------------------------------------------------------------------ K10's walk
-template <int D>
-struct SmemKV {
-  bf16 k[BLOCK * Pitch<D>::H];   // k̂ of this block's keys
-  bf16 v[BLOCK * Pitch<D>::H];   // raw v of this block's keys
-  bf16 q[BLOCK * Pitch<D>::H];   // q̂_s of the current query tile
-  bf16 dO[BLOCK * Pitch<D>::H];  // dO of the current query tile
-  float s[BLOCK * Pitch<D>::S];  // Sᵀ; dV then dk̂ in the epilogue
-  float dp[BLOCK * Pitch<D>::S];  // dPᵀ
-  bf16 p[BLOCK * Pitch<D>::P];   // bf16 Pᵀ
-  bf16 ds[BLOCK * Pitch<D>::P];  // bf16 dSᵀ
-  float lse[BLOCK];
-  float delta[BLOCK];
-};
-
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragAcc;
-
-// K10's key-major walk, on nvcuda::wmma.  Four warps, 16 keys each, so
-// every product is warp-local.
-//
-// Prologue: this block's keys as k̂ (and k̂_s into `ks` when given) in K1's
-// multiply order and raw v, then each warp's 16 keys as A operands.
-template <int D>
-__device__ __forceinline__ void load_key_tile(SmemKV<D>& sm, bf16* ks, FragA (&a_k)[D / 16],
-                                              FragA (&a_v)[D / 16], const bf16* __restrict__ kb,
-                                              int64_t k_st, const bf16* __restrict__ vb, int64_t v_st,
-                                              int n0, int T, const float* __restrict__ s_vec,
-                                              float scale) {
-  using P = Pitch<D>;
-  const int lr = threadIdx.x >> 1;  // two threads per tile row
-  const int lh = threadIdx.x & 1;
-  const int warp = threadIdx.x >> 5;
-  {
-    float x[D / 2];
-    load_half_row<D>(x, kb, k_st, n0 + lr, T, lh);
-    const float norm = row_norm<D>(x);
-    store_projected<D>(sm.k + lr * P::H + lh * (D / 2), x, norm, s_vec, 1.0f, lh);
-    if (ks != nullptr) store_projected<D>(ks + lr * P::H + lh * (D / 2), x, norm, s_vec, scale, lh);
-    copy_half_row<D>(sm.v + lr * P::H + lh * (D / 2), vb, v_st, n0 + lr, T, lh);
-  }
-  __syncthreads();
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    wmma::load_matrix_sync(a_k[kk], sm.k + warp * 16 * P::H + kk * 16, P::H);
-    wmma::load_matrix_sync(a_v[kk], sm.v + warp * 16 * P::H + kk * 16, P::H);
-  }
-}
-
-// Sᵀ = k̂ q̂_sᵀ and dPᵀ = v dOᵀ for this warp's 16 keys × the 64 query
-// columns in sm.q / sm.dO (stored [query][d] row-major = [d][query]
-// column-major), into this warp's rows of sm.s / sm.dp
-template <int D>
-__device__ __forceinline__ void key_major_scores(SmemKV<D>& sm, const FragA (&a_k)[D / 16],
-                                                 const FragA (&a_v)[D / 16], int warp) {
-  using P = Pitch<D>;
-#pragma unroll
-  for (int j = 0; j < BLOCK / 16; ++j) {
-    FragAcc acc_s, acc_p;
-    wmma::fill_fragment(acc_s, 0.f);
-    wmma::fill_fragment(acc_p, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bq, bo;
-      wmma::load_matrix_sync(bq, sm.q + j * 16 * P::H + kk * 16, P::H);
-      wmma::load_matrix_sync(bo, sm.dO + j * 16 * P::H + kk * 16, P::H);
-      wmma::mma_sync(acc_s, a_k[kk], bq, acc_s);
-      wmma::mma_sync(acc_p, a_v[kk], bo, acc_p);
-    }
-    wmma::store_matrix_sync(sm.s + warp * 16 * P::S + j * 16, acc_s, P::S, wmma::mem_row_major);
-    wmma::store_matrix_sync(sm.dp + warp * 16 * P::S + j * 16, acc_p, P::S, wmma::mem_row_major);
-  }
-}
-
-// dV += bf16(Pᵀ) dO and dk̂ += bf16(dSᵀ) q̂_s for this warp's 16 keys
-template <int D>
-__device__ __forceinline__ void accumulate_dv_dk(const SmemKV<D>& sm, FragAcc (&acc_dv)[D / 16],
-                                                 FragAcc (&acc_dk)[D / 16], int warp) {
-  using P = Pitch<D>;
-#pragma unroll
-  for (int kk = 0; kk < BLOCK / 16; ++kk) {
-    FragA ap, ad;
-    wmma::load_matrix_sync(ap, sm.p + warp * 16 * P::P + kk * 16, P::P);
-    wmma::load_matrix_sync(ad, sm.ds + warp * 16 * P::P + kk * 16, P::P);
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bo, bq;
-      wmma::load_matrix_sync(bo, sm.dO + kk * 16 * P::H + j * 16, P::H);
-      wmma::load_matrix_sync(bq, sm.q + kk * 16 * P::H + j * 16, P::H);
-      wmma::mma_sync(acc_dv[j], ap, bo, acc_dv[j]);
-      wmma::mma_sync(acc_dk[j], ad, bq, acc_dk[j]);
-    }
-  }
-}
-
-// Epilogue: dV straight out; dk̂ through the justnorm VJP (warp-local rows);
-// then this key tile's Σ_t dk̂ ⊙ kn into its dsqk partial slot
-template <int D>
-__device__ __forceinline__ void dkv_epilogue(SmemKV<D>& sm, const FragAcc (&acc_dv)[D / 16],
-                                             const FragAcc (&acc_dk)[D / 16],
-                                             const bf16* __restrict__ kb, int64_t k_st,
-                                             bf16* __restrict__ dk_head, int64_t dk_st,
-                                             bf16* __restrict__ dv_head, int64_t dv_st, int n0,
-                                             int T, const float* __restrict__ s_vec,
-                                             float* __restrict__ dsqk_slot) {
-  using P = Pitch<D>;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int row = warp * 16 + (lane >> 1);
-  const int half = lane & 1;
-  const int t = n0 + row;
-  float* grow = sm.s + row * P::S + half * (D / 2);
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j)
-    wmma::store_matrix_sync(sm.s + warp * 16 * P::S + j * 16, acc_dv[j], P::S, wmma::mem_row_major);
-  __syncwarp();
-  if (t < T) store_half_row_bf16<D>(dv_head + (int64_t)t * dv_st + half * (D / 2), grow);
-  __syncwarp();
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j)
-    wmma::store_matrix_sync(sm.s + warp * 16 * P::S + j * 16, acc_dk[j], P::S, wmma::mem_row_major);
-  __syncwarp();
-  justnorm_vjp_row<D>(grow, kb, k_st, dk_head + (int64_t)t * dk_st + half * (D / 2), t, T, half,
-                      s_vec);
-  __syncthreads();
-  write_dsqk_partial<D>(sm.s, dsqk_slot);
-}
-
-// ------------------------------------------------------------------ K2 / K5
 // An fp32 64 × D accumulator (hopper.cuh's layout) → rows of `g` (pitch
 // Pitch<D>::S), for the row-wise epilogues
 template <int D>
@@ -369,17 +208,38 @@ __device__ __forceinline__ void dump_acc(float* g, const float (&acc)[D / 2]) {
           make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
 }
 
-// the epilogues' fp32 [64, D] rows reuse the walks' two stages
+// the walks' epilogues' fp32 [64, D] rows reuse their two stages
 template <int D>
 constexpr bool epilogue_fits(int stage) { return 2 * stage >= BLOCK * Pitch<D>::S * 4; }
 static_assert(epilogue_fits<64>(LayoutKV<64>::STAGE) && epilogue_fits<32>(LayoutKV<32>::STAGE), "epilogue tile");
 static_assert(epilogue_fits<64>(LayoutQ<64, true>::STAGE) && epilogue_fits<32>(LayoutQ<32, true>::STAGE),
               "epilogue tile");
 
+// The dK/dV walks' epilogue (K2/K5 and K10): dV straight out; dk̂ through the
+// justnorm VJP; this key tile's Σ_t dk̂ ⊙ kn into its dsqk partial slot.
+// `g`: fp32 [64, Pitch<D>::S] staging, free once every wgmma is done.
+template <int D>
+__device__ __forceinline__ void dkv_epilogue(float* g, const float (&acc_dv)[D / 2], const float (&acc_dk)[D / 2],
+                                             const bf16* __restrict__ kb, int64_t k_st, bf16* __restrict__ dkb,
+                                             int64_t dk_st, bf16* __restrict__ dvb, int64_t dv_st, int n0, int T,
+                                             const float* __restrict__ s_vec, float* __restrict__ slot) {
+  const int row = threadIdx.x >> 1, half = threadIdx.x & 1;  // two threads per key row
+  const int t = n0 + row;
+  float* grow = g + row * Pitch<D>::S + half * (D / 2);
+  dump_acc<D>(g, acc_dv);
+  __syncthreads();
+  if (t < T) store_half_row_bf16<D>(dvb + (int64_t)t * dv_st + half * (D / 2), grow);
+  __syncthreads();
+  dump_acc<D>(g, acc_dk);
+  __syncthreads();
+  justnorm_vjp_row<D>(grow, kb, k_st, dkb + (int64_t)t * dk_st + half * (D / 2), t, T, half, s_vec);
+  __syncthreads();
+  write_dsqk_partial<D>(g, slot);
+}
+
+// ------------------------------------------------------------------ K2 / K5
 // dK/dV pass: one block (one warpgroup) per (b·h, 64-key tile), attn_bwd.cuh's
-// walk with K = k̂ and Q = q̂_s.  Epilogue (≙ dkv_epilogue): dV straight out;
-// dk̂ through the justnorm VJP; this key tile's Σ_t dk̂ ⊙ kn into its dsqk
-// partial slot.
+// walk with K = k̂ and Q = q̂_s, then dkv_epilogue.
 template <int D, bool BOUNDED>
 __global__ void __launch_bounds__(NUM_THREADS)
 qknorm_attn_bwd_dkv_kernel(const bf16* __restrict__ k, const float* __restrict__ sqk,
@@ -407,21 +267,9 @@ qknorm_attn_bwd_dkv_kernel(const bf16* __restrict__ k, const float* __restrict__
                        lse_pad + (int64_t)bh * T_pad, delta_pad + (int64_t)bh * T_pad, n0, T, T_pad, bound);
 
   __syncthreads();  // every wgmma is done with the stages
-  float* g = reinterpret_cast<float*>(sp + L::STAGES);
-  const int row = threadIdx.x >> 1, half = threadIdx.x & 1;  // two threads per key row
-  const int t = n0 + row;
-  float* grow = g + row * Pitch<D>::S + half * (D / 2);
-  dump_acc<D>(g, acc_dv);
-  __syncthreads();
-  if (t < T) store_half_row_bf16<D>(dv + b * st.dv[0] + h * st.dv[1] + (int64_t)t * st.dv[2] + half * (D / 2), grow);
-  __syncthreads();
-  dump_acc<D>(g, acc_dk);
-  __syncthreads();
-  justnorm_vjp_row<D>(grow, k + b * st.k[0] + h * st.k[1], st.k[2],
-                      dk + b * st.dk[0] + h * st.dk[1] + (int64_t)t * st.dk[2] + half * (D / 2), t, T,
-                      half, s_vec);
-  __syncthreads();
-  write_dsqk_partial<D>(g, dsqk_part + ((int64_t)bh * n_slots + blockIdx.x) * D);
+  dkv_epilogue<D>(reinterpret_cast<float*>(sp + L::STAGES), acc_dv, acc_dk, k + b * st.k[0] + h * st.k[1],
+                  st.k[2], dk + b * st.dk[0] + h * st.dk[1], st.dk[2], dv + b * st.dv[0] + h * st.dv[1],
+                  st.dv[2], n0, T, s_vec, dsqk_part + ((int64_t)bh * n_slots + blockIdx.x) * D);
 }
 
 // dQ pass: one block per (b·h, 64-query tile), attn_bwd.cuh's walk over the
@@ -469,184 +317,144 @@ qknorm_attn_bwd_dq_kernel(const bf16* __restrict__ q, const float* __restrict__ 
 }
 
 // ------------------------------------------------------------------ K10
-// One pass per 64-key tile over the q sub-tiles: S, P, dP and dS are formed
-// once per (query chunk, key tile); dV and dk̂ stay in registers, and this key
-// tile's share of dq̂ goes to an fp32 partial buffer [B·H, n_tiles, T, D].
+// A chunk's dq̂ rows [m0, end) (rows from `end` on are zero) in the
+// accumulator layout → the justnorm VJP → dq rows, and the chunk's
+// Σ_t dq̂ ⊙ qn into `slot`.  `g`: fp32 [64, Pitch<D>::S] staging.
 template <int D>
-struct SmemSub {
-  SmemKV<D> kv;                  // K2's dK/dV tiles, the query tile being a chunk
-  bf16 ks[BLOCK * Pitch<D>::H];  // k̂_s of this block's keys
-};
-
-template <int D>
-__global__ void __launch_bounds__(NUM_THREADS)
-qknorm_attn_bwd_subtiled_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                                const bf16* __restrict__ v, const float* __restrict__ sqk,
-                                const bf16* __restrict__ o, const bf16* __restrict__ dO,
-                                const float* __restrict__ lse, bf16* __restrict__ dk,
-                                bf16* __restrict__ dv, float* __restrict__ dq_part,
-                                float* __restrict__ dsqk_part, int H, int T, int nsplit,
-                                int n_slots, float scale, Strides st) {
-  using P = Pitch<D>;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  SmemSub<D>& sub = *reinterpret_cast<SmemSub<D>*>(smem_raw);
-  SmemKV<D>& sm = sub.kv;
-
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
-  const int n0 = blockIdx.x * BLOCK;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int lr = threadIdx.x >> 1;  // block-wide loads: two threads per tile row
-  const int lh = threadIdx.x & 1;
-  const float* s_vec = sqk + h * D;
-  const bf16* qb = q + b * st.q[0] + h * st.q[1];
-  const bf16* kb = k + b * st.k[0] + h * st.k[1];
-  const bf16* ob = o + b * st.o[0] + h * st.o[1];
-  const bf16* dOb = dO + b * st.dO[0] + h * st.dO[1];
-  float* dq_tile = dq_part + ((int64_t)bh * gridDim.x + blockIdx.x) * T * D;
-
-  FragA a_k[D / 16], a_v[D / 16];  // this warp's 16 keys, fixed across the query walk
-  load_key_tile<D>(sm, sub.ks, a_k, a_v, kb, st.k[2], v + b * st.v[0] + h * st.v[1], st.v[2], n0,
-                   T, s_vec, scale);
-  FragAcc acc_dv[D / 16], acc_dk[D / 16];
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j) {
-    wmma::fill_fragment(acc_dv[j], 0.f);
-    wmma::fill_fragment(acc_dk[j], 0.f);
-  }
-
-  const int row = warp * 16 + (lane >> 1);  // elementwise: this lane's key row
-  const int half = lane & 1;                // ... and half of the 64 query columns
-  const bool key_live = n0 + row < T;
-  const int step = ((T / nsplit) / 16) * 16;  // ≙ _split_bounds
-  for (int part = 0; part < nsplit; ++part) {
-    const int a = part * step;
-    const int e = part == nsplit - 1 ? T : a + step;
-    for (int m0 = a; m0 < e; m0 += BLOCK) {
-      const int m1 = min(m0 + BLOCK, e);  // this chunk's query rows: [m0, m1), a multiple of 16
-      __syncthreads();  // every warp is done with the previous chunk
-      {
-        float x[D / 2], y[D / 2];
-        load_half_row<D>(x, qb, st.q[2], m0 + lr, m1, lh);
-        store_projected<D>(sm.q + lr * P::H + lh * (D / 2), x, row_norm<D>(x), s_vec, scale, lh);
-        copy_half_row<D>(sm.dO + lr * P::H + lh * (D / 2), dOb, st.dO[2], m0 + lr, m1, lh);
-        // Δ = Σ_d dO·O of this chunk's rows, in fp32 (zero past the chunk)
-        load_half_row<D>(x, dOb, st.dO[2], m0 + lr, m1, lh);
-        load_half_row<D>(y, ob, st.o[2], m0 + lr, m1, lh);
-        float acc = 0.f;
-#pragma unroll
-        for (int i = 0; i < D / 2; ++i) acc += x[i] * y[i];
-        acc += __shfl_xor_sync(FULL, acc, 1);
-        if (lh == 0) {
-          sm.delta[lr] = acc;
-          sm.lse[lr] = m0 + lr < m1 ? lse[(int64_t)bh * T + m0 + lr] : 0.f;
-        }
-      }
-      __syncthreads();
-      key_major_scores<D>(sm, a_k, a_v, warp);
-      __syncwarp();
-
-      // Pᵀ = exp(Sᵀ − lse[query]) and dSᵀ = Pᵀ ⊙ (dPᵀ − Δ[query]); P = 0 for
-      // queries past the chunk and keys past T
-      {
-        constexpr int HN = BLOCK / 2;
-        const float* srow = sm.s + row * P::S + half * HN;
-        const float* dprow = sm.dp + row * P::S + half * HN;
-        bf16* prow = sm.p + row * P::P + half * HN;
-        bf16* dsrow = sm.ds + row * P::P + half * HN;
-#pragma unroll 8
-        for (int c = 0; c < HN; ++c) {
-          const int col = half * HN + c;
-          const float pv = key_live && m0 + col < m1 ? expf(srow[c] - sm.lse[col]) : 0.f;
-          prow[c] = __float2bfloat16(pv);
-          dsrow[c] = __float2bfloat16(pv * (dprow[c] - sm.delta[col]));
-        }
-      }
-      __syncwarp();
-      accumulate_dv_dk<D>(sm, acc_dv, acc_dk, warp);
-      __syncthreads();  // every warp's dSᵀ rows are in
-
-      // this key tile's dq̂ of the chunk, bf16(dS) k̂_s: warp w takes queries
-      // m0 + 16w .. + 15 against all 64 keys; dS is dSᵀ read column-major
-      if (m0 + warp * 16 < m1) {
-        FragAcc acc_q[D / 16];
-#pragma unroll
-        for (int j = 0; j < D / 16; ++j) wmma::fill_fragment(acc_q[j], 0.f);
-#pragma unroll
-        for (int kk = 0; kk < BLOCK / 16; ++kk) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> ad;
-          wmma::load_matrix_sync(ad, sm.ds + kk * 16 * P::P + warp * 16, P::P);
-#pragma unroll
-          for (int j = 0; j < D / 16; ++j) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bk;
-            wmma::load_matrix_sync(bk, sub.ks + kk * 16 * P::H + j * 16, P::H);
-            wmma::mma_sync(acc_q[j], ad, bk, acc_q[j]);
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < D / 16; ++j)
-          wmma::store_matrix_sync(dq_tile + (int64_t)(m0 + warp * 16) * D + j * 16, acc_q[j], D,
-                                  wmma::mem_row_major);
-      }
-    }
-  }
-
-  dkv_epilogue<D>(sm, acc_dv, acc_dk, kb, st.k[2], dk + b * st.dk[0] + h * st.dk[1], st.dk[2],
-                  dv + b * st.dv[0] + h * st.dv[1], st.dv[2], n0, T, s_vec,
-                  dsqk_part + ((int64_t)bh * n_slots + blockIdx.x) * D);
+__device__ __forceinline__ void dq_epilogue(float* g, const float (&acc)[D / 2], const bf16* __restrict__ qb,
+                                            int64_t q_st, bf16* __restrict__ dqb, int64_t dq_st, int m0, int end,
+                                            const float* __restrict__ s_vec, float* __restrict__ slot) {
+  const int row = threadIdx.x >> 1, half = threadIdx.x & 1;
+  const int t = m0 + row;
+  dump_acc<D>(g, acc);
+  __syncthreads();
+  justnorm_vjp_row<D>(g + row * Pitch<D>::S + half * (D / 2), qb, q_st, dqb + (int64_t)t * dq_st + half * (D / 2),
+                      t, end, half, s_vec);
+  __syncthreads();
+  write_dsqk_partial<D>(g, slot);
 }
 
-// One block per (b·h, 64-query tile): dq̂ = Σ over key tiles, in tile order,
-// of the partials; then the justnorm VJP → dq and the tile's Σ_t dq̂ ⊙ qn.
+// One chunk's dq̂ share in device memory: each thread's D/2 accumulator
+// registers as D/8 float4s, thread-fastest ("register image"), so a
+// warpgroup moves 64·D fp32 values in whole 2 KB runs.
+template <int D>
+__device__ __forceinline__ void store_share(float* __restrict__ dst, const float (&acc)[D / 2]) {
+  float4* p = reinterpret_cast<float4*>(dst) + threadIdx.x;
+#pragma unroll
+  for (int f = 0; f < D / 8; ++f)
+    __stcg(p + f * NUM_THREADS, make_float4(acc[4 * f], acc[4 * f + 1], acc[4 * f + 2], acc[4 * f + 3]));
+}
+// acc = share + acc, elementwise (the running sum first: tile order)
+template <int D>
+__device__ __forceinline__ void add_share(float (&acc)[D / 2], const float* __restrict__ src) {
+  const float4* p = reinterpret_cast<const float4*>(src) + threadIdx.x;
+#pragma unroll
+  for (int f = 0; f < D / 8; ++f) {
+    const float4 x = __ldcg(p + f * NUM_THREADS);  // streamed once: not kept in L1
+    acc[4 * f] = x.x + acc[4 * f];
+    acc[4 * f + 1] = x.y + acc[4 * f + 1];
+    acc[4 * f + 2] = x.z + acc[4 * f + 2];
+    acc[4 * f + 3] = x.w + acc[4 * f + 3];
+  }
+}
+
+// K10's dq strategy on dkv_walk (attn_bwd.cuh): per chunk, this key tile's
+// share dq̂ = dS·k̂_s [64 queries, D] as wgmmas reading the walk's bf16 dSᵀ
+// tile and the block's k̂_s tile, both MN-major, then the share into this
+// key tile's slot of the partial buffer, which
+// qknorm_attn_bwd_subtiled_dq_kernel sums over the key tiles.
+template <int D>
+struct SplitDq {
+  using L = LayoutKV<D, true>;
+  float acc[D / 2];
+  uint32_t base;
+  const bf16* ks;  // this head's k̂_s rows
+  int n0, T;
+  float* shares;   // this key tile's [n_chunks][64·D] slots
+
+  __device__ __forceinline__ void load(uint32_t b) {
+    base = b;
+    load_tile<D>(base + L::K2, ks, D, n0, T);
+  }
+
+  __device__ __forceinline__ void prepare() {
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    fence_operands(acc);
+  }
+
+  // dq̂ [64 queries, D] = dS [queries, keys] · k̂_s [keys, D]: A is the DS tile
+  // read MN-major (queries contiguous), B the k̂_s tile read MN-major
+  __device__ __forceinline__ void issue() {
+#pragma unroll
+    for (int kk = 0; kk < BLOCK / 16; ++kk)
+      wgmma_ss_bmn<1>(acc, smem_desc<2 * BLOCK>(base + L::DS + kk * 16 * 2 * BLOCK),
+                      smem_desc<2 * D>(base + L::K2 + kk * 16 * 2 * D), kk > 0);
+  }
+
+  __device__ __forceinline__ void finish(int m) {
+    fence_operands(acc);
+    store_share<D>(shares + (int64_t)m * BLOCK * D, acc);
+  }
+};
+
+// One block per (b·h, 64-key tile): the sub-tiles' chunks through dkv_walk
+// with SplitDq, then dkv_epilogue.
+template <int D>
+__global__ void __launch_bounds__(NUM_THREADS)
+qknorm_attn_bwd_subtiled_kernel(const bf16* __restrict__ k, const float* __restrict__ sqk,
+                                const bf16* __restrict__ qs, const bf16* __restrict__ kh,
+                                const bf16* __restrict__ ks, const bf16* __restrict__ v,
+                                const bf16* __restrict__ dO, const float* __restrict__ lse_pad,
+                                const float* __restrict__ delta_pad, bf16* __restrict__ dk,
+                                bf16* __restrict__ dv, float* __restrict__ shares, float* __restrict__ dsqk_part,
+                                int H, int T, int T_pad, int n_slots, const __grid_constant__ Chunks ch,
+                                Strides st) {
+  using L = LayoutKV<D, true>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* sp = smem_raw + (base - raw);
+
+  const int bh = blockIdx.y, j = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int n0 = j * BLOCK;
+  const int64_t head = (int64_t)bh * T * D;
+  SplitDq<D> split;
+  split.ks = ks + head;
+  split.n0 = n0;
+  split.T = T;
+  split.shares = shares + ((int64_t)bh * gridDim.x + j) * ch.n * BLOCK * D;
+
+  float acc_dv[D / 2], acc_dk[D / 2];
+  dkv_walk<D, false, true>(acc_dv, acc_dk, base, sp, kh + head, D, v + b * st.v[0] + h * st.v[1], st.v[2],
+                           qs + head, dO + b * st.dO[0] + h * st.dO[1], st.dO[2], lse_pad + (int64_t)bh * T_pad,
+                           delta_pad + (int64_t)bh * T_pad, n0, T, ch, 0.f, split);
+
+  __syncthreads();  // every wgmma is done with the stages
+  dkv_epilogue<D>(reinterpret_cast<float*>(sp + L::STAGES), acc_dv, acc_dk, k + b * st.k[0] + h * st.k[1],
+                  st.k[2], dk + b * st.dk[0] + h * st.dk[1], st.dk[2], dv + b * st.dv[0] + h * st.dv[1],
+                  st.dv[2], n0, T, sqk + h * D, dsqk_part + ((int64_t)bh * n_slots + j) * D);
+}
+
+// One block per (b·h, chunk): the key tiles' shares summed in tile order,
+// then dq_epilogue.
 template <int D>
 __global__ void __launch_bounds__(NUM_THREADS)
 qknorm_attn_bwd_subtiled_dq_kernel(const bf16* __restrict__ q, const float* __restrict__ sqk,
-                                   const float* __restrict__ dq_part, bf16* __restrict__ dq,
-                                   float* __restrict__ dsqk_part, int H, int T, int n_slots,
-                                   Strides st) {
-  using P = Pitch<D>;
-  constexpr int ROW4 = D / 4;                           // float4s per row
-  constexpr int PER = BLOCK * ROW4 / NUM_THREADS;       // float4s per thread
-  __shared__ __align__(16) float g[BLOCK * P::S];
-
-  const int bh = blockIdx.y;
+                                   const float* __restrict__ shares, bf16* __restrict__ dq,
+                                   float* __restrict__ dsqk_part, int H, int n_tiles, int n_slots,
+                                   const __grid_constant__ Chunks ch, Strides st) {
+  __shared__ __align__(16) float g[BLOCK * Pitch<D>::S];
+  const int bh = blockIdx.y, m = blockIdx.x;
   const int b = bh / H, h = bh % H;
-  const int m0 = blockIdx.x * BLOCK;
-  const int n_tiles = gridDim.x;
-  const int rows = min(BLOCK, T - m0);
-  float4 acc[PER];
+  float acc[D / 2];
 #pragma unroll
-  for (int r = 0; r < PER; ++r) acc[r] = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int j = 0; j < n_tiles; ++j) {
-    const float4* src = reinterpret_cast<const float4*>(dq_part + (((int64_t)bh * n_tiles + j) * T + m0) * D);
-#pragma unroll
-    for (int r = 0; r < PER; ++r) {
-      const int f = threadIdx.x + r * NUM_THREADS;
-      if (f / ROW4 < rows) {
-        const float4 x = src[f];
-        acc[r].x += x.x;
-        acc[r].y += x.y;
-        acc[r].z += x.z;
-        acc[r].w += x.w;
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < PER; ++r) {
-    const int f = threadIdx.x + r * NUM_THREADS;
-    *reinterpret_cast<float4*>(g + (f / ROW4) * P::S + (f % ROW4) * 4) = acc[r];
-  }
-  __syncthreads();
-
-  const int row = threadIdx.x >> 1;
-  const int half = threadIdx.x & 1;
-  const int t = m0 + row;
-  justnorm_vjp_row<D>(g + row * P::S + half * (D / 2), q + b * st.q[0] + h * st.q[1], st.q[2],
-                      dq + b * st.dq[0] + h * st.dq[1] + (int64_t)t * st.dq[2] + half * (D / 2), t,
-                      T, half, sqk + h * D);
-  __syncthreads();
-  write_dsqk_partial<D>(g, dsqk_part + ((int64_t)bh * n_slots + n_tiles + blockIdx.x) * D);
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int j = 0; j < n_tiles; ++j)
+    add_share<D>(acc, shares + (((int64_t)bh * n_tiles + j) * ch.n + m) * BLOCK * D);
+  dq_epilogue<D>(g, acc, q + b * st.q[0] + h * st.q[1], st.q[2], dq + b * st.dq[0] + h * st.dq[1], st.dq[2],
+                 ch.start(m), ch.end(m), sqk + h * D, dsqk_part + ((int64_t)bh * n_slots + n_tiles + m) * D);
 }
 
 template <int D, bool BOUNDED>
@@ -680,39 +488,35 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* sqk,
 }
 
 template <int D>
-cudaError_t launch_subtiled(const void* q, const void* k, const void* v, const void* sqk,
-                            const void* o, const void* lse, const void* dO, void* dq, void* dk,
-                            void* dv, void* dq_part, void* dsqk_part, int B, int H, int T,
-                            float scale, int nsplit, const Strides& st, cudaStream_t stream) {
+cudaError_t launch_subtiled(const void* q, const void* k, const void* v, const void* sqk, const void* qs,
+                            const void* kh, const void* ks, const void* lse_pad, const void* delta_pad,
+                            const void* dO, void* dq, void* dk, void* dv, void* shares, void* dsqk_part, int B,
+                            int H, int T, const Chunks& ch, const Strides& st, cudaStream_t stream) {
   const int n_tiles = (T + BLOCK - 1) / BLOCK;
-  const int n_slots = 2 * n_tiles;
-  const dim3 grid(n_tiles, B * H);
+  const int n_slots = n_tiles + ch.n;
+  const int T_pad = n_tiles * BLOCK;
   cudaError_t err;
-  const size_t smem = sizeof(SmemSub<D>);
+  const int smem = LayoutKV<D, true>::BYTES;
   if ((err = allow_smem(qknorm_attn_bwd_subtiled_kernel<D>, smem)) != cudaSuccess) return err;
-  qknorm_attn_bwd_subtiled_kernel<D><<<grid, NUM_THREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const float*>(sqk), static_cast<const bf16*>(o), static_cast<const bf16*>(dO),
-      static_cast<const float*>(lse), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-      static_cast<float*>(dq_part), static_cast<float*>(dsqk_part), H, T, nsplit, n_slots, scale, st);
+  qknorm_attn_bwd_subtiled_kernel<D><<<dim3(n_tiles, B * H), NUM_THREADS, smem, stream>>>(
+      static_cast<const bf16*>(k), static_cast<const float*>(sqk), static_cast<const bf16*>(qs),
+      static_cast<const bf16*>(kh), static_cast<const bf16*>(ks), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dO), static_cast<const float*>(lse_pad), static_cast<const float*>(delta_pad),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), static_cast<float*>(shares), static_cast<float*>(dsqk_part),
+      H, T, T_pad, n_slots, ch, st);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  qknorm_attn_bwd_subtiled_dq_kernel<D><<<grid, NUM_THREADS, 0, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const float*>(sqk),
-      static_cast<const float*>(dq_part), static_cast<bf16*>(dq), static_cast<float*>(dsqk_part),
-      H, T, n_slots, st);
+  qknorm_attn_bwd_subtiled_dq_kernel<D><<<dim3(ch.n, B * H), NUM_THREADS, 0, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const float*>(sqk), static_cast<const float*>(shares),
+      static_cast<bf16*>(dq), static_cast<float*>(dsqk_part), H, n_tiles, n_slots, ch, st);
   return cudaGetLastError();
 }
 
-// strides = {q_sb, q_sh, q_st, k_.., v_.., [o_..,] dO_.., dq_.., dk_.., dv_..},
-// o's three only with_o
-Strides unpack_strides(const int64_t* strides, bool with_o) {
+// strides = {q_sb, q_sh, q_st, k_.., v_.., dO_.., dq_.., dk_.., dv_..}
+Strides unpack_strides(const int64_t* strides) {
   Strides st{};
-  int64_t* dst[8] = {st.q, st.k, st.v, st.o, st.dO, st.dq, st.dk, st.dv};
-  for (int i = 0, n = 0; i < 8; ++i) {
-    if (i == 3 && !with_o) continue;
-    for (int j = 0; j < 3; ++j) dst[i][j] = strides[3 * n + j];
-    ++n;
-  }
+  int64_t* dst[7] = {st.q, st.k, st.v, st.dO, st.dq, st.dk, st.dv};
+  for (int i = 0; i < 7; ++i)
+    for (int j = 0; j < 3; ++j) dst[i][j] = strides[3 * i + j];
   return st;
 }
 
@@ -733,7 +537,7 @@ extern "C" cudaError_t nvit_qknorm_attn_bwd(const void* q, const void* k, const 
                                             int T, int D, float scale, int bounded,
                                             const int64_t* strides, void* stream) {
   if (B <= 0 || H <= 0 || T <= 0) return cudaErrorInvalidValue;
-  const Strides st = unpack_strides(strides, false);
+  const Strides st = unpack_strides(strides);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto go = [&](auto kernel_launch) {
     return kernel_launch(q, k, v, sqk, qs, kh, ks, lse_pad, delta_pad, dO, dq, dk, dv, dsqk_part, B, H,
@@ -744,28 +548,37 @@ extern "C" cudaError_t nvit_qknorm_attn_bwd(const void* q, const void* k, const 
   return cudaErrorInvalidValue;
 }
 
-// K10: q, k, v, o, dO, sqk, lse and the outputs dq, dk, dv as for
-// nvit_qknorm_attn_bwd; dq_part: fp32 scratch [B·H, ceil(T/64), T, D], each
-// key tile's share of dq̂; dsqk_part: fp32 [B·H, 2·ceil(T/64), D] per-tile
-// partial sums.  The query rows are walked in nsplit sub-tiles of
-// ((T/nsplit)/16)·16 rows, the last taking the rest (≙ _split_bounds): T must
-// be a multiple of 16 and every sub-tile non-empty.  P = exp(S − lse), no clamp.
+// K10: q, k, v, dO, sqk, the prologue's qs, kh, ks, lse_pad, delta_pad and
+// the outputs dq, dk, dv as for nvit_qknorm_attn_bwd (P = exp(S − lse), no
+// clamp).  starts: the n_chunks + 1 row bounds of the query chunks
+// (flash_attention.py::subtile_chunks; starts[n_chunks] = T), each chunk 1 to
+// 64 rows from a multiple of 16.  shares: fp32 scratch [B·H, ceil(T/64),
+// n_chunks, 64·D], each key tile's share of each chunk's dq̂; dsqk_part: fp32
+// [B·H, ceil(T/64) + n_chunks, D], per-key-tile and per-chunk partial sums.
 extern "C" cudaError_t nvit_qknorm_attn_bwd_subtiled(const void* q, const void* k, const void* v,
-                                                     const void* sqk, const void* o,
-                                                     const void* lse, const void* dO, void* dq,
-                                                     void* dk, void* dv, void* dq_part,
-                                                     void* dsqk_part, int B, int H, int T, int D,
-                                                     float scale, int nsplit,
+                                                     const void* sqk, const void* qs, const void* kh,
+                                                     const void* ks, const void* lse_pad,
+                                                     const void* delta_pad, const void* dO, void* dq,
+                                                     void* dk, void* dv, void* shares, void* dsqk_part, int B,
+                                                     int H, int T, int D, const int32_t* starts, int n_chunks,
                                                      const int64_t* strides, void* stream) {
-  if (B <= 0 || H <= 0 || T <= 0 || T % 16 || nsplit < 1 || (T / nsplit) / 16 < 1)
+  if (B <= 0 || H <= 0 || T <= 0 || T > INT16_MAX || n_chunks < 1 || n_chunks > MAX_CHUNKS ||
+      starts[0] != 0 || starts[n_chunks] != T)
     return cudaErrorInvalidValue;
-  const Strides st = unpack_strides(strides, true);
+  Chunks ch{};
+  ch.n = n_chunks;
+  for (int m = 0; m <= n_chunks; ++m) {
+    if (m < n_chunks && (starts[m] % 16 || starts[m + 1] <= starts[m] || starts[m + 1] - starts[m] > BLOCK))
+      return cudaErrorInvalidValue;
+    ch.starts[m] = static_cast<int16_t>(starts[m]);
+  }
+  const Strides st = unpack_strides(strides);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return launch_subtiled<64>(q, k, v, sqk, o, lse, dO, dq, dk, dv, dq_part, dsqk_part, B, H, T,
-                               scale, nsplit, st, s);
-  if (D == 32)
-    return launch_subtiled<32>(q, k, v, sqk, o, lse, dO, dq, dk, dv, dq_part, dsqk_part, B, H, T,
-                               scale, nsplit, st, s);
+  auto go = [&](auto kernel_launch) {
+    return kernel_launch(q, k, v, sqk, qs, kh, ks, lse_pad, delta_pad, dO, dq, dk, dv, shares, dsqk_part, B, H, T,
+                         ch, st, s);
+  };
+  if (D == 64) return go(launch_subtiled<64>);
+  if (D == 32) return go(launch_subtiled<32>);
   return cudaErrorInvalidValue;
 }

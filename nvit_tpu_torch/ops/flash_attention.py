@@ -17,9 +17,11 @@ Past ``FUSED_BWD_MAX_T`` the JAX package projects q̂/k̂ in fp32 and takes the
 plain flash kernels whatever the mode; so does ``flash_attention_qknorm``.
 K10 (``qknorm_attention_bwd_subtiled``, in ``csrc/qknorm_attn_bwd.cu``)
 replaces scripts/attn_bwd_split_bench.py::_bwd_split_kernel, K2's plain
-recompute walked in ``nsplit`` query sub-tiles in one pass; it is on no
-training or serving path, only behind that script's port
-(``nvit_tpu_torch.scripts.attn_bwd_split_bench``).
+recompute walked in ``nsplit`` query sub-tiles in one pass: after the same
+prologue, K2's dK/dV walk over the sub-tiles' chunks (``subtile_chunks``)
+with a fifth product for each key tile's share of dq̂, summed over the key
+tiles by a second kernel.  It is on no training or serving path, only
+behind that script's port (``nvit_tpu_torch.scripts.attn_bwd_split_bench``).
 
 Baseline mode (plain softmax(q·kᵀ·scale)·v): K7 replaces ``_fwd_kernel``
 (launched by ``_fwd``); K8 replaces ``_bwd_fused_kernel`` and K9 the split
@@ -383,12 +385,10 @@ qknorm_attention_fwd.launches_bounded = 0
 qknorm_attention_fwd.launches_auto = 0
 
 
-def _bwd_operands(name: str, q, k, v, sqk_eff, o, lse, do, *, o_strides: bool):
+def _bwd_operands(name: str, q, k, v, sqk_eff, o, lse, do):
     """Checks and launch operands shared by K2 and K10 → (b, h, t, d, fp32
     sqk, contiguous lse, aligned do, (dq, dk, dv) as views of ONE bf16
-    [B, T, 3, H, D] buffer, the fp32 dsqk partials [B·H, 2·ceil(T/64), D],
-    the strides: q, k, v, o (with ``o_strides``: K10 reads o, K2 does not),
-    do, dq, dk, dv)."""
+    [B, T, 3, H, D] buffer, the strides: q, k, v, do, dq, dk, dv)."""
     b, h, t, d = _check_operands(q, k, v, sqk_eff)
     _check_cuda_bf16(name, (q, k, v, o, do), d)
     if o.shape != q.shape or do.shape != q.shape or tuple(lse.shape) != (b, h, t):
@@ -400,11 +400,9 @@ def _bwd_operands(name: str, q, k, v, sqk_eff, o, lse, do, *, o_strides: bool):
         do = do.contiguous()
     buf = torch.empty((b, t, 3, h, d), dtype=torch.bfloat16, device=q.device)
     grads = tuple(buf[:, :, i].permute(0, 2, 1, 3) for i in range(3))
-    part = torch.empty((b * h, 2 * -(-t // BLOCK), d), dtype=torch.float32, device=q.device)
-    views = ((q, "q"), (k, "k"), (v, "v"), *(((o, "o"),) if o_strides else ()), (do, "do"),
-             (grads[0], "dq"), (grads[1], "dk"), (grads[2], "dv"))
+    views = ((q, "q"), (k, "k"), (v, "v"), (do, "do"), (grads[0], "dq"), (grads[1], "dk"), (grads[2], "dv"))
     strides = (ctypes.c_int64 * (3 * len(views)))(*(st for x, nm in views for st in _launch_strides(x, nm)))
-    return b, h, t, d, sqk_eff.to(torch.float32).contiguous(), lse.contiguous(), do, grads, part, strides
+    return b, h, t, d, sqk_eff.to(torch.float32).contiguous(), lse.contiguous(), do, grads, strides
 
 
 def qknorm_attention_bwd(
@@ -420,9 +418,9 @@ def qknorm_attention_bwd(
     with a contiguous head dim.  Counts each launch in ``.launches`` (K2) or
     ``.launches_bounded`` (K5)."""
     _check_mode(mode)
-    b, h, t, d, sqk, lse, do, grads, part, strides = _bwd_operands("qknorm_attention_bwd", q, k, v, sqk_eff,
-                                                                   o, lse, do, o_strides=False)
-    dq, dk, dv = grads
+    b, h, t, d, sqk, lse, do, (dq, dk, dv), strides = _bwd_operands("qknorm_attention_bwd", q, k, v, sqk_eff,
+                                                                     o, lse, do)
+    part = torch.empty((b * h, 2 * -(-t // BLOCK), d), dtype=torch.float32, device=q.device)
     qs, kh, ks, lse_pad, delta = qknorm_project_bf16(q, k, sqk, scale, o=o, do=do, lse=lse)
     fn = _entry("qknorm_attn_bwd", "nvit_qknorm_attn_bwd",
                 (_PTR,) * 14 + (_INT,) * 4 + (_F32, _INT, _STRIDES, _PTR))
@@ -444,14 +442,23 @@ qknorm_attention_bwd.launches = 0
 qknorm_attention_bwd.launches_bounded = 0
 
 
+def subtile_chunks(t: int, nsplit: int) -> list[tuple[int, int]]:
+    """K10's query chunks: each ``split_bounds(t, nsplit)`` sub-tile, in
+    order, cut into row ranges of at most 64 rows that never cross its end
+    (112 = 64 + 48) — the query tiles the kernel walks; every start is a
+    multiple of 16 and the ranges cover [0, t) end to end."""
+    return [(a, min(a + BLOCK, e)) for a0, e in split_bounds(t, nsplit) for a in range(a0, e, BLOCK)]
+
+
 def qknorm_attention_bwd_subtiled(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sqk_eff: torch.Tensor, scale: float,
     o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, nsplit: int,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """K10, the q-sub-tiled QK-norm attention backward → (dq, dk, dv,
     dsqk [B, H, D] fp32 per (b, h)), K2's function with ``o``/``lse`` from a
-    forward in any mode.  CUDA tensors launch the kernel (bf16, head dim 32
-    or 64) or raise, and count the launch in ``.launches``; CPU tensors run
+    forward in any mode.  CUDA tensors launch the projection prologue
+    (``qknorm_project_bf16``) and the kernel (bf16, head dim 32 or 64) or
+    raise, and count the kernel in ``.launches``; CPU tensors run
     ``qknorm_attention_bwd_subtiled_ref`` — chosen by where the tensors lie,
     nothing else.  T must be a multiple of 16 and every one of the
     ``nsplit`` sub-tiles non-empty (``split_bounds``)."""
@@ -464,31 +471,31 @@ qknorm_attention_bwd_subtiled.launches = 0
 
 
 def _launch_bwd_subtiled(q, k, v, sqk_eff, scale: float, o, lse, do, nsplit: int):
-    """One launch of K10 (two kernels on one stream) → as
-    ``qknorm_attention_bwd_subtiled``; raises on anything but CUDA operands.
-    dq/dk/dv are views of ONE [B, T, 3, H, D] buffer."""
-    from nvit_tpu_torch.ops._build import load_library
-
-    split_bounds(q.shape[-2], nsplit)
-    b, h, t, d, sqk, lse, do, (dq, dk, dv), part, strides = _bwd_operands(
-        "qknorm_attention_bwd_subtiled", q, k, v, sqk_eff, o, lse, do, o_strides=True)
-    # each 64-key tile's share of dq̂, summed over the tiles by the second kernel
-    dq_part = torch.empty((b * h, -(-t // BLOCK), t, d), dtype=torch.float32, device=q.device)
-    fn = load_library("qknorm_attn_bwd").nvit_qknorm_attn_bwd_subtiled
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_int, ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
+    """One call of K10 (the prologue, then csrc/qknorm_attn_bwd.cu's
+    ``nvit_qknorm_attn_bwd_subtiled``) → as ``qknorm_attention_bwd_subtiled``;
+    raises on anything but CUDA operands.  dq/dk/dv are views of ONE
+    [B, T, 3, H, D] buffer."""
+    chunks = subtile_chunks(q.shape[-2], nsplit)
+    b, h, t, d, sqk, lse, do, (dq, dk, dv), strides = _bwd_operands(
+        "qknorm_attention_bwd_subtiled", q, k, v, sqk_eff, o, lse, do)
+    qs, kh, ks, lse_pad, delta = qknorm_project_bf16(q, k, sqk, scale, o=o, do=do, lse=lse)
+    n_tiles, n = -(-t // BLOCK), len(chunks)
+    part = torch.empty((b * h, n_tiles + n, d), dtype=torch.float32, device=q.device)
+    # each 64-key tile's share of each chunk's dq̂, summed over the tiles by the second kernel
+    shares = torch.empty((b * h, n_tiles, n, BLOCK * d), dtype=torch.float32, device=q.device)
+    starts = (ctypes.c_int32 * (n + 1))(*(a for a, _ in chunks), t)
+    fn = _entry("qknorm_attn_bwd", "nvit_qknorm_attn_bwd_subtiled",
+                (_PTR,) * 15 + (_INT,) * 4 + (ctypes.POINTER(ctypes.c_int32), _INT, _STRIDES, _PTR))
     err = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), sqk.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dq_part.data_ptr(),
-        part.data_ptr(), b, h, t, d, float(scale), int(nsplit), strides,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), sqk.data_ptr(), qs.data_ptr(), kh.data_ptr(), ks.data_ptr(),
+        lse_pad.data_ptr(), delta.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        shares.data_ptr(), part.data_ptr(), b, h, t, d, starts, n, strides,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"qknorm_attn_bwd_subtiled launch failed: cudaError {err}")
     _count(qknorm_attention_bwd_subtiled, "rowmax")
-    # the per-tile partials summed in a fixed order: deterministic dsqk
+    # the per-tile and per-chunk partials summed in a fixed order: deterministic dsqk
     return dq, dk, dv, part.sum(dim=1).reshape(b, h, d)
 
 

@@ -1,6 +1,6 @@
-"""The QK-norm attention kernels' outputs on seeded inputs, saved, and two
-such files compared byte for byte: a change to the tile loops K1, K2 and K5
-share with other kernels is held to their earlier outputs.
+"""The attention kernels' outputs on seeded inputs, saved, and two such
+files compared byte for byte: a change to the tile loops K1, K2, K5, K7, K8
+and K9 share with each other (and K10) is held to their earlier outputs.
 
     PYTHONPATH=<tree> python nvit_tpu_torch/scripts/qknorm_fingerprint.py --out <file>
     python nvit_tpu_torch/scripts/qknorm_fingerprint.py --compare <file> <file>
@@ -8,21 +8,23 @@ share with other kernels is held to their earlier outputs.
 
 The first form runs, with whichever ``nvit_tpu_torch`` comes first on
 ``PYTHONPATH``, the projection prologue, K1 (``mode="rowmax"``), K5's
-forward ("bounded", "auto"), K2 and K5's backward at chip_smoke.py's check
-shapes — [4, 12, 784, 64] and [2, 4, 100, 32], q/k/v as contiguous tensors
-and as strided views of one fused QKV buffer — on inputs made on the card
-from fixed seeds, and saves every output (o, lse, dq, dk, dv, dsqk, q̂_s, k̂,
-k̂_s, the padded lse and Δ) to ``--out``.  Run it once per tree on the same
+forward ("bounded", "auto"), K2 and K5's backward, and the plain kernels K7,
+K8 (with their prologue) and K9 at chip_smoke.py's check shapes —
+[4, 12, 784, 64] and [2, 4, 100, 32], and [2, 12, 1100, 64] where the JAX
+package takes K9, q/k/v as contiguous tensors and as strided views of one
+fused QKV buffer — on inputs made on the card from fixed seeds, and saves
+every output (o, lse, dq, dk, dv, dsqk, q̂_s, k̂, k̂_s, qs, ks, the padded lse
+and Δ) to ``--out``.  Run it once per tree on the same
 card.  The second form prints, per output, whether the two files hold the
 same bytes, and exits non-zero if any differs.  The third times each of the
-four calls (K1, K5's forward, K2, K5's backward, the prologue included) at
+four QK-norm calls (K1, K5's forward, K2, K5's backward, the prologue included) at
 the batch-32 shape [32, 12, 784, 64] on strided QKV views, by CUDA events:
 the median of 20 single calls, as chip_smoke.py times them, which carries
 the wrappers' host time, and the median over 5 runs of 20 back-to-back
 calls of a run's mean, in which the card, not the host, sets the pace.  It
 prints the card's name and power limit and one JSON line; run it with each
 tree in turns (parent, change, change, parent).  It uses only entry points
-that the QK-norm kernels have had since their wgmma design, so an earlier
+that the attention kernels have had since their wgmma designs, so an earlier
 tree can write the first file.  Refuses to run without a card.
 """
 
@@ -34,6 +36,7 @@ import sys
 import torch
 
 SHAPES = ((4, 12, 784, 64), (2, 4, 100, 32))
+PLAIN_SHAPES = SHAPES + ((2, 12, 1100, 64),)  # K9's T
 
 
 def inputs(b, h, t, d, seed, view):
@@ -68,6 +71,21 @@ def fingerprint() -> dict[str, torch.Tensor]:
             o, lse = out[f"{tag}/rowmax/o"], out[f"{tag}/rowmax/lse"]
             for name, x in zip(("qs", "kh", "ks", "lse_pad", "delta_pad"),
                                fa.qknorm_project_bf16(q, k, sqk, scale, o=o, do=do, lse=lse)):
+                out[f"{tag}/prologue/{name}"] = x
+    for b, h, t, d in PLAIN_SHAPES:  # K7, K8 and K9 (and their prologue)
+        for view in (False, True):
+            tag = f"{b}x{h}x{t}x{d}{'-view' if view else ''}/plain"
+            q, k, v, _, do = inputs(b, h, t, d, seed=t + d + view + 7, view=view)
+            scale = float(d) ** -0.5
+            o, lse = fa.flash_attention_fwd(q, k, v, scale, with_lse=True)
+            out[f"{tag}/K7/o"], out[f"{tag}/K7/lse"] = o, lse
+            for name, x in zip(("dq", "dk", "dv"), fa.attention_bwd_fused(q, k, v, o, lse, do, scale)):
+                out[f"{tag}/K8/{name}"] = x
+            delta = fa.attention_delta(o, do)
+            for name, x in zip(("dq", "dk", "dv"), fa.attention_bwd_split(q, k, v, do, lse, delta, scale)):
+                out[f"{tag}/K9/{name}"] = x
+            for name, x in zip(("qs", "ks", "lse_pad", "delta_pad"),
+                               fa.flash_project_bf16(q, k, scale, lse=lse, o=o, do=do)):
                 out[f"{tag}/prologue/{name}"] = x
     torch.cuda.synchronize()
     return {key: x.detach().contiguous().cpu() for key, x in out.items()}

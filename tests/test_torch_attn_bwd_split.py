@@ -128,6 +128,25 @@ def test_k10_twin_matches_pallas_bwd_split(jax_script, shape, nsplit, dtype):
     assert np.abs(dsqk - dsqk_ref).max() <= DSQK_RTOL * np.abs(dsqk_ref).max()
 
 
+@pytest.mark.parametrize("t", [112, 128, 784, 1104])
+@pytest.mark.parametrize("nsplit", [1, 2, 7])
+def test_k10_chunk_table_tiles_the_script_sub_tiles(jax_script, t, nsplit):
+    """The query chunks the kernel walks (``subtile_chunks``, handed to it
+    as a table): each of the JAX script's ``_split_bounds`` sub-tiles is
+    covered exactly, in order, by chunks of at most 64 rows that start on a
+    multiple of 16 and never cross its end."""
+    sub = jax_script._split_bounds(t, nsplit)
+    assert fa.split_bounds(t, nsplit) == sub
+    chunks = fa.subtile_chunks(t, nsplit)
+    assert chunks[0][0] == 0 and chunks[-1][1] == t
+    assert all(e == a for (_, e), (a, _) in zip(chunks, chunks[1:]))  # end to end, in order
+    for a, e in chunks:
+        assert a % 16 == 0 and 0 < e - a <= fa.BLOCK, (a, e)
+        assert sum(sa <= a and e <= se for sa, se in sub) == 1, (a, e)  # inside one sub-tile
+    for sa, se in sub:
+        assert [c for c in chunks if sa <= c[0] < se][-1][1] == se
+
+
 @pytest.mark.parametrize("nsplit", [2, 7])
 def test_k10_twin_matches_the_integrated_twin(nsplit):
     """One pass over the sub-tiles computes K2's function: the twin against

@@ -638,24 +638,29 @@ def test_flagship_block_with_bias_backward_matches_plain_path(cuda, monkeypatch,
     (2, 3, 112, 64, True, 2),    # 48 + 64 rows: ragged chunks
     (1, 2, 784, 64, True, 2),    # the bench's T: 384 + 400 rows
     (1, 2, 784, 64, True, 7),    # 7 × 112 = 7 × (64 + 48)
+    (1, 2, 1104, 32, True, 7),   # past 1024, 18 key tiles, head dim 32: 22 chunks
+    (1, 2, 1104, 64, True, 2),   # 544 + 560 rows: 32- and 48-row chunks close them
 ])
 def test_k10_matches_twin_and_is_deterministic(cuda, b, h, t, d, view, nsplit):
+    """K10 against its twin; each call runs the projection prologue once
+    and K10 once, and two calls give the same bytes."""
     from nvit_tpu_torch.ops.flash_attention import (
         qknorm_attention_bwd_subtiled,
         qknorm_attention_bwd_subtiled_ref,
         qknorm_attention_fwd,
+        qknorm_project_bf16,
     )
 
     q, k, v, sqk = attn_inputs(b, h, t, d, cuda, seed=t + nsplit, qkv_view=view)
     do = torch.randn(b, t, h, d, generator=torch.Generator().manual_seed(t)).to(cuda, torch.bfloat16)
     do = do.permute(0, 2, 1, 3)
     o, lse = qknorm_attention_fwd(q, k, v, sqk, 8.0, with_lse=True)
-    before = qknorm_attention_bwd_subtiled.launches
+    before = qknorm_attention_bwd_subtiled.launches, qknorm_project_bf16.launches
     got = qknorm_attention_bwd_subtiled(q, k, v, sqk, 8.0, o, lse, do, nsplit)
     again = qknorm_attention_bwd_subtiled(q, k, v, sqk, 8.0, o, lse, do, nsplit)
     want = qknorm_attention_bwd_subtiled_ref(q, k, v, sqk, 8.0, o, lse, do, nsplit)
     torch.cuda.synchronize()
-    assert qknorm_attention_bwd_subtiled.launches == before + 2
+    assert (qknorm_attention_bwd_subtiled.launches, qknorm_project_bf16.launches) == (before[0] + 2, before[1] + 2)
     for a, r in zip(got[:3], want[:3]):
         assert a.shape == q.shape and a.dtype == torch.bfloat16
         torch.testing.assert_close(a.float(), r.float(), **BF16_TOL)
