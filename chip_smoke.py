@@ -72,7 +72,23 @@ bound 8) and above it (sqk × 2, bound 32):
                each launching the path's kernels 13 times and no other;
                logits, loss and per-group gradients against the plain path;
                in "auto", the logits bit-equal to the static arm the gate
-               picks and unequal to the other arm's.
+               picks and unequal to the other arm's;
+then the run's lifecycle at nViT-B/16 full width:
+10. lifecycle — Trainer.train() on 6 iterations against 3 and a relaunch with
+               init_from=resume: every leaf of the final checkpoint_latest
+               bit-equal, iter_num and meta["trainer"] carried across, each
+               resumed step launching K1–K4 13 times and the prologue 26
+               (counts set to 0 before the resumed launch, read after); the
+               checkpoint's size, restore and save times (host copy, file
+               write); ``python -m nvit_tpu_torch`` stopped by SIGTERM after
+               its first logged step (exit 0, checkpoint_latest saved),
+               relaunched with init_from=resume, then run eval-only on its
+               checkpoint_best; ``python -m nvit_tpu_torch.ckpt.export`` (bf16)
+               and ``python -m nvit_tpu_torch.serve --export --warm-buckets``:
+               /predict at batches 1 and 32 against Predictor.from_checkpoint
+               on the fp32 checkpoint, SIGHUP → "reloaded", SIGTERM →
+               "drained; exiting" and exit 0.  The files live in a temporary
+               directory, removed at the end.
 
 K9 is not on any main path (T = 784 ≤ 1024 takes K8), nor is K10 (only the
 bench runs it), so their launch counts in the summary are 0 per training
@@ -88,6 +104,9 @@ import dataclasses
 import http.client
 import json
 import math
+import os
+import queue
+import signal
 import statistics
 import subprocess
 import sys
@@ -131,6 +150,9 @@ PEAK_BYTES_PER_S = 3.35e12
 # the Trainer's logged peak device memory against one kernel-path step's:
 # the eval and the log_norms step allocate little beyond the step
 TRAINER_PEAK_MARGIN = 1.05
+# device memory a train phase may find allocated at its start (0.094 GiB on
+# an H100 before the first): far below any path's state of params and moments
+PHASE_START_GIB = 0.5
 
 KERNELS = {  # summary name → (source, TPU kernel it replaces)
     "qknorm_attn_fwd": ("nvit_tpu_torch/csrc/qknorm_attn_fwd.cu", "nvit_tpu/ops/flash_attention.py:389"),
@@ -1340,6 +1362,11 @@ def train_phase(smi: str, title: str, path: str, cfg, grad_groups: dict) -> dict
     check(m.flash_attn and not cfg.system.remat and cfg.training.batch_size == 32,
           "flagship training config drifted")
     b = cfg.training.batch_size
+    held = torch.cuda.memory_allocated() / 2**30
+    print(f"device memory allocated at the phase's start: {held:.3f} GiB")
+    # an earlier path's state (a Trainer's is 1.34 GiB at this width) would
+    # inflate this path's peaks and loosen the Trainer's memory check
+    check(held <= PHASE_START_GIB, f"{held:.3f} GiB still allocated from earlier phases")
     _, images, labels = batch32(m)
     state = create_train_state(cfg, seed=0, device="cuda")
     if m.bias:
@@ -1511,6 +1538,275 @@ def check_phase(title: str, path: str, cfg, grad_groups: dict, *, sqk_factor: fl
     return {"forward": forward, "step": stepped}
 
 
+# the lifecycle phase: the checkpoint's size and speed, and the served export
+LIFECYCLE_ITERS = 6  # the straight run; the relaunched run takes 3 + 3
+EXPORT_LOGIT_TOL = 0.05  # max |Δ log p| of the bf16 export against the fp32 checkpoint
+
+
+def env_of(cfg) -> dict:
+    """NVIT_SECTION__KEY[__SUB] variables that pin every field of ``cfg``,
+    so the CLI's config (settings.yaml under them) is ``cfg``."""
+    out = {}
+
+    def walk(prefix, tree):
+        for key, value in tree.items():
+            name = f"{prefix}__{key.upper()}"
+            if isinstance(value, dict):
+                walk(name, value)
+            else:
+                out[name] = str(value).lower() if isinstance(value, bool) else str(value)
+
+    for section, tree in cfg.to_dict().items():
+        walk(f"NVIT_{section.upper()}", tree)
+    return out
+
+
+class Cli:
+    """One ``python -m ...`` of the port in a subprocess on this checkout,
+    its output lines kept and readable while it runs."""
+
+    def __init__(self, args, env: dict, cwd: Path, name: str):
+        self.name = name
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", *args], cwd=cwd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True, env={**{k: v for k, v in os.environ.items() if not k.startswith("NVIT_")},
+                            "PYTHONPATH": str(Path(__file__).resolve().parent), **env})
+        self.lines = []
+        self._queue = queue.Queue()
+        threading.Thread(target=self._read, daemon=True).start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.append(line.rstrip("\n"))
+            self._queue.put(line)
+
+    def wait_for(self, *texts: str, timeout: float = 300) -> str:
+        """The first output line holding one of ``texts``; fails if the process ends first."""
+        deadline = time.monotonic() + timeout
+        while True:
+            try:
+                line = self._queue.get(timeout=max(0.1, min(5.0, deadline - time.monotonic())))
+            except queue.Empty:
+                check(self.proc.poll() is None, f"{self.name} exited {self.proc.returncode} before "
+                      f"printing {texts}:\n" + "\n".join(self.lines[-30:]))
+                check(time.monotonic() < deadline, f"{self.name}: no {texts} in {timeout} s")
+                continue
+            if any(t in line for t in texts):
+                return line.rstrip("\n")
+
+    def finish(self, timeout: float = 600) -> int:
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        finally:
+            if self.proc.poll() is None:  # stop every process this script starts
+                self.proc.kill()
+                self.proc.wait()
+        time.sleep(0.2)  # the reader drains the pipe
+        return rc
+
+    def run(self, timeout: float = 600) -> list:
+        rc = self.finish(timeout)
+        check(rc == 0, f"{self.name} exited {rc}:\n" + "\n".join(self.lines[-40:]))
+        return self.lines
+
+
+def npz_leaves(path: Path) -> list:
+    with np.load(path) as z:
+        return [z[f"leaf_{i}"] for i in range(len(z.files))]
+
+
+def lifecycle_phase(smi: str) -> dict:
+    """The run's lifecycle at nViT-B/16 full width (flagship_config(): batch
+    32, bf16, fp32 params and moments, no remat, synthetic 224 px data): a
+    straight run of 6 iterations against one relaunched after 3 with
+    init_from=resume (every leaf of the final checkpoint_latest bit-equal,
+    the resumed steps launching K1–K4 13 times each and the prologue 26);
+    the checkpoint's size and save/restore times; ``python -m
+    nvit_tpu_torch`` resumed, stopped by SIGTERM, relaunched, and run
+    eval-only on its checkpoint_best; ``python -m nvit_tpu_torch.ckpt.export``
+    (bf16) and ``python -m nvit_tpu_torch.serve --export`` answering
+    /predict against ``Predictor.from_checkpoint`` on the fp32 checkpoint,
+    reloading on SIGHUP and draining on SIGTERM → the resumed run's launches."""
+    import shutil
+    import tempfile
+
+    from nvit_tpu_torch.ckpt.checkpoint import (
+        load_checkpoint_meta,
+        restore_for_resume,
+        save_checkpoint_async,
+        state_leaves,
+    )
+    from nvit_tpu_torch.configs import AugmentationConfig
+    from nvit_tpu_torch.infer import Predictor
+    from nvit_tpu_torch.models.presets import flagship_config
+    from nvit_tpu_torch.train.trainer import Trainer
+
+    phase("lifecycle nViT-B/16 (flagship_config: batch 32, bf16, fp32 params and moments, no remat): "
+          "checkpoints, resume, the CLIs, export, serving from the export")
+    base = flagship_config()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_lifecycle_"))
+
+    def config(out: Path, **training):
+        return dataclasses.replace(
+            base,
+            training=dataclasses.replace(base.training, max_iters=LIFECYCLE_ITERS, eval_interval=3,
+                                         eval_iters=1, log_interval=1, always_save_checkpoint=True,
+                                         **training),
+            system=dataclasses.replace(base.system, quick_validation_size=32),
+            data=dataclasses.replace(base.data, dataset="synthetic", out_dir=str(out),
+                                     checkpoint_dir=str(out), augmentation=AugmentationConfig(auto_augment=False)))
+
+    try:
+        # A: 6 straight iterations (evals at 0 and 3, checkpoint_latest at 3 and 6)
+        straight, relaunched = root / "straight", root / "relaunched"
+        Trainer(config(straight), device="cuda").train()
+        # B: 3 iterations, then a relaunch that resumes from checkpoint_latest
+        first = Trainer(config(relaunched, max_iters_per_launch=3), device="cuda")
+        first.train()
+        check(first.iter_num == 3 and not (relaunched / "finished").exists(), "the first launch did not stop at 3")
+        del first
+        resumed = Trainer(config(relaunched, init_from="resume"), device="cuda")
+        check(resumed.iter_num == 3 and resumed._eval_count == 1, "the resume did not restore iteration 3")
+        per_step = []
+
+        def counted(step):
+            def run(state, images, labels):
+                before = read_counts()
+                out = step(state, images, labels)
+                per_step.append({k: v - before[k] for k, v in read_counts().items()})
+                return out
+            return run
+
+        resumed._train_step, resumed._train_step_norms = counted(resumed._train_step), counted(
+            resumed._train_step_norms)
+        reset_counts()
+        resumed.train()
+        launches = read_counts()
+        del resumed
+        torch.cuda.empty_cache()
+        print(f"launches in the resumed launch (3 steps, one eval): {launches}")
+        want = per_pass(PATHS["nvit"]["step"], 1 + base.model.n_layer)
+        check(len(per_step) == 3, f"the resumed launch took {len(per_step)} steps")
+        for counts in per_step:
+            check_launches(counts, want, "one resumed training step")
+        for name in PATHS["nvit"]["step"]:
+            check(launches[name] > 0, f"the resumed launch never launched {name}")
+        a, b = npz_leaves(straight / "checkpoint_latest.npz"), npz_leaves(relaunched / "checkpoint_latest.npz")
+        differ = [i for i, (x, y) in enumerate(zip(a, b)) if not np.array_equal(x, y)]
+        worst = max((float(np.abs(a[i].astype(np.float64) - b[i]).max()) for i in differ), default=0.0)
+        print(f"straight vs relaunched checkpoint_latest: {len(a)} leaves, {len(differ)} differ "
+              f"(max |Δ| {worst:.3e})")
+        check(len(a) == len(b) and not differ, "the resumed run is not bit-equal to the straight run")
+        ma, mb = (load_checkpoint_meta(d, "checkpoint_latest") for d in (straight, relaunched))
+        print(f"meta: iter_num {ma['iter_num']} / {mb['iter_num']}, trainer {ma['trainer']} / {mb['trainer']}")
+        check(ma["iter_num"] == mb["iter_num"] == LIFECYCLE_ITERS and ma["trainer"] == mb["trainer"],
+              "iter_num or meta['trainer'] did not carry across the relaunch")
+
+        # the checkpoint's size and speed: restore A's, save it again (the
+        # host copy on this thread, the files on another)
+        size = (straight / "checkpoint_latest.npz").stat().st_size
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, cfg, meta = restore_for_resume(straight, "checkpoint_latest", device="cuda")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        check(all(np.array_equal(x, y) for x, y in zip(state_leaves(state), a)),
+              "the restored state is not the checkpoint")
+        cli_dir = root / "cli"
+        # a checkpoint with no trainer state: the CLI's first eval after it is
+        # an improvement by definition, so its checkpoint_best exists (on the
+        # synthetic data the val split's classes are the train split's in name
+        # only, and a later eval improves on the first by chance alone)
+        t0 = time.perf_counter()
+        pending = save_checkpoint_async(cli_dir, "checkpoint_latest", state, cfg, meta["metrics"])
+        snapshot_s = time.perf_counter() - t0
+        pending.result()
+        write_s = time.perf_counter() - t0 - snapshot_s
+        del state
+        torch.cuda.empty_cache()
+        print(f"checkpoint_latest: {len(a)} leaves, {size} bytes ({size / 2**30:.3f} GiB); restore "
+              f"{restore_s:.3f} s; save: host copy {snapshot_s:.3f} s, then the file write {write_s:.3f} s "
+              f"on its thread [{smi}]")
+
+        # python -m nvit_tpu_torch: resume, SIGTERM after the first logged step
+        env = {**env_of(config(cli_dir)), "NVIT_TRAINING__INIT_FROM": "resume",
+               "NVIT_TRAINING__MAX_ITERS": "1000", "NVIT_TRAINING__ALWAYS_SAVE_CHECKPOINT": "false"}
+        run = Cli(["nvit_tpu_torch"], env, root, "python -m nvit_tpu_torch")
+        print(f"  {run.wait_for('Iter: ')}")
+        run.proc.send_signal(signal.SIGTERM)
+        rc = run.finish()
+        stopped = load_checkpoint_meta(cli_dir, "checkpoint_latest")["iter_num"]
+        got = [x for x in run.lines if "signal" in x]
+        print(f"  SIGTERM → exit {rc}, checkpoint_latest at iteration {stopped}; " + " | ".join(got))
+        check(rc == 0 and stopped >= LIFECYCLE_ITERS + 1 and got, "the CLI did not stop cleanly on SIGTERM")
+        best = load_checkpoint_meta(cli_dir, "checkpoint_best")["iter_num"]
+        check(best == LIFECYCLE_ITERS, f"checkpoint_best at {best}, not at the first eval")
+        t0 = time.perf_counter()
+        Cli(["nvit_tpu_torch"], {**env, "NVIT_TRAINING__MAX_ITERS": str(stopped + 2)}, root,
+            "python -m nvit_tpu_torch (relaunch)").run()
+        relaunch_s = time.perf_counter() - t0
+        after = load_checkpoint_meta(cli_dir, "checkpoint_latest")["iter_num"]
+        print(f"  relaunch with init_from=resume: iteration {stopped} → {after} in {relaunch_s:.1f} s "
+              f"(process included); finished: {(cli_dir / 'finished').read_text()}")
+        check(after == stopped + 2 and (cli_dir / "finished").read_text() == f"max_iters:{stopped + 2}",
+              "the relaunch did not continue from the stopped run")
+        lines = Cli(["nvit_tpu_torch"], {**env, "NVIT_TRAINING__EVAL_ONLY": "true",
+                                         "NVIT_DATA__CHECKPOINT_FILE": "checkpoint_best"},
+                    root, "python -m nvit_tpu_torch (eval_only)").run()
+        got = [x for x in lines if "Validation metrics" in x]
+        print(f"  eval_only on checkpoint_best: {got[-1].split(' - ')[-1] if got else 'nothing'}")
+        check(len(got) == 1 and "nan" not in got[0], "eval_only printed no finite validation metrics")
+
+        # export (bf16) and serve it; /predict against the fp32 checkpoint
+        deploy = root / "deploy"
+        lines = Cli(["nvit_tpu_torch.ckpt.export", "--checkpoint", str(cli_dir), "--name", "checkpoint_best",
+                     "--dest", str(deploy)], {}, root, "python -m nvit_tpu_torch.ckpt.export").run()
+        export_size = (deploy / "checkpoint_best.export.npz").stat().st_size
+        print(f"  {lines[-1]}: {export_size} bytes [{smi}]")
+        server = Cli(["nvit_tpu_torch.serve", "--export", "--checkpoint", str(deploy), "--name",
+                      "checkpoint_best", "--warm-buckets", "--max-batch", "32", "--port", "0"], {}, root,
+                     "python -m nvit_tpu_torch.serve")
+        try:
+            warmed = server.wait_for("warmed batches")
+            addr = ("127.0.0.1", int(server.wait_for("serving").rsplit(":", 1)[1]))
+            print(f"  serve: {warmed} [{smi}]")
+            ref = Predictor.from_checkpoint(cli_dir, "checkpoint_best", device="cuda")
+            n_cls = base.model.num_classes
+            rng = np.random.default_rng(3)
+            shape = (3, base.model.image_size, base.model.image_size)
+            for b in (1, 32):
+                images = rng.integers(0, 256, (b, *shape), dtype=np.uint8)
+                res = post(addr, "/predict", json.dumps({"images": images.tolist(), "top_k": n_cls}).encode(),
+                           "application/json")
+                served = np.zeros((b, n_cls))
+                np.put_along_axis(served, np.asarray(res["labels"]), np.asarray(res["probs"]), axis=-1)
+                want = ref.predict_probs(images)
+                dlog = float(np.abs(np.log(served) - np.log(want)).max())
+                top1 = float((served.argmax(-1) == want.argmax(-1)).mean())
+                print(f"  /predict batch {b}, bf16 export vs Predictor.from_checkpoint (fp32): "
+                      f"max|Δ log p| {dlog:.3e} (bound {EXPORT_LOGIT_TOL}), top-1 agreement {top1:.2f}")
+                check(np.isfinite(served).all() and dlog <= EXPORT_LOGIT_TOL,
+                      f"batch {b}: the served export disagrees with the checkpoint")
+            del ref
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            server.proc.send_signal(signal.SIGHUP)
+            got = server.wait_for("reloaded", "reload failed")
+            print(f"  SIGHUP: {got} in {time.perf_counter() - t0:.3f} s")
+            check(got.startswith("reloaded"), "the reload failed")
+            stats = get(addr, "/stats")
+            check(stats["reloads"] == 1 and stats["errors"] == 0, f"bad /stats after the reload: {stats}")
+            server.proc.send_signal(signal.SIGTERM)
+            server.wait_for("drained; exiting")
+        finally:
+            rc = server.finish(timeout=120)
+        print(f"  SIGTERM: drained; exit {rc}")
+        check(rc == 0, f"the server exited {rc}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device — this smoke test runs only on the card", file=sys.stderr)
@@ -1585,6 +1881,8 @@ def main() -> int:
             launches["qknorm_attn_bwd_bounded"] = got["step"]["qknorm_attn_bwd_bounded"]
         gc.collect()
         torch.cuda.empty_cache()
+
+    lifecycle_phase(smi)
 
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,

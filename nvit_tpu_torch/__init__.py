@@ -12,7 +12,13 @@ Slices ported so far, for a non-Kohonen nViT and the baseline ViT
 * serving — ``serve.InferenceService`` → ``infer.Predictor`` →
   ``models.vit.ViT``;
 * training — ``train.trainer.Trainer`` → ``train.step.make_train_step`` →
-  the forward, loss and backward → ``train.optim``'s fused AdamW + renorm.
+  the forward, loss and backward → ``train.optim``'s fused AdamW + renorm;
+* the run's lifecycle — checkpoints in the JAX package's format
+  (``ckpt/checkpoint.py``, ``ckpt/tree.py``), resume and ``eval_only``, the
+  params-only export (``ckpt/export.py``), ``Predictor.from_checkpoint`` /
+  ``from_export``, the config loader (``configs/loader.py``), and the
+  command lines ``python -m nvit_tpu_torch``, ``python -m
+  nvit_tpu_torch.ckpt.export`` and ``python -m nvit_tpu_torch.serve``.
 
 The Pallas kernels those paths reach are rewritten by hand in CUDA C++ for
 sm_90a (``csrc/``), each forward joined to its backward by a
@@ -30,8 +36,10 @@ K10, the q-sub-tiled QK-norm backward (``ops/flash_attention.py``
 of it against the integrated backward.
 
 Each kernel wrapper runs its plain PyTorch twin on CPU tensors and launches
-the CUDA kernel (or raises) on CUDA tensors.  Checkpoint files, the CLI and
-Kohonen come in later slices (ROADMAP.md).
+the CUDA kernel (or raises) on CUDA tensors.  The entry points run on the
+card unless the caller asks for the CPU.  Datasets other than synthetic,
+AutoAugment, remat and Kohonen, among others, come in later slices
+(ROADMAP.md §1).
 """
 
 __version__ = "0.2.0"

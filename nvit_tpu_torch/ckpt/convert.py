@@ -1,4 +1,6 @@
-"""JAX parameter tree → the port's ``state_dict`` (numpy in, torch out).
+"""JAX parameter tree ↔ the port's ``state_dict``: ``state_dict_from_jax``
+(numpy in, torch out) and its inverse ``jax_params_from_state_dict`` (torch
+in, numpy out).
 
 The port's own mapping, written without importing ``nvit_tpu.ckpt`` (whose
 package import pulls jax):
@@ -15,6 +17,9 @@ the unused ``rmsnorm_att/mlp`` weights; in baseline mode (no ``sz``, no scale
 vectors, the cross-attention's ``local_norm``/``global_norm``) those plus the
 blocks' ``rmsnorm_att/mlp`` weights, which that function drops.  Load the
 result with ``ViT.load_state_dict(sd, strict=True)``.
+
+The AdamW moments ``mu``/``nu`` have their parameters' layout on both
+sides, so the same two functions carry them across (``ckpt/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -88,3 +93,69 @@ def state_dict_from_jax(params: Mapping[str, Any], cfg: ViTConfig) -> dict[str, 
     if cfg.use_nvit:
         sd["sz"] = _t(params["sz"])
     return sd
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A contiguous host copy that shares no memory with ``t``: the fused
+    update rewrites parameters and moments in place."""
+    out = torch.empty(t.shape, dtype=t.dtype, device="cpu")
+    out.copy_(t.detach())
+    return out.numpy()
+
+
+def _jax_linear(sd: Mapping[str, torch.Tensor], prefix: str) -> dict[str, np.ndarray]:
+    p = {"w": _host(sd[f"{prefix}.weight"].T)}
+    if f"{prefix}.bias" in sd:
+        p["b"] = _host(sd[f"{prefix}.bias"])
+    return p
+
+
+def jax_params_from_state_dict(sd: Mapping[str, torch.Tensor], cfg: ViTConfig) -> dict[str, Any]:
+    """The inverse of ``state_dict_from_jax``: a ``ViT.state_dict()`` (or a
+    moment dict with its keys) → ``init_vit``'s tree with numpy leaves, each a
+    copy: linear weights back to ``[in, out]``, the patch embeds to their
+    ``[C·k·k, d]`` matrices, the global one's fan-in onto the 2×2-block-major
+    order of ``global_embed_permutation``."""
+    check_supported(cfg)
+    d = cfg.n_embd
+    perm = torch.from_numpy(global_embed_permutation(cfg.channels, cfg.global_patch_size,
+                                                     cfg.local_patch_size))
+    gw = sd["global_patch_embed.1.weight"]
+    params: dict[str, Any] = {
+        "local_patch_embed": {"w": _host(sd["local_patch_embed.weight"].reshape(d, -1).T),
+                              "b": _host(sd["local_patch_embed.bias"])},
+        "global_patch_embed": {"w": _host(gw.reshape(d, -1)[:, perm.to(gw.device)].T),
+                               "b": _host(sd["global_patch_embed.1.bias"])},
+        "local_pos_embed": _host(sd["local_pos_embed"]),
+        "global_pos_embed": _host(sd["global_pos_embed"]),
+        "reconstruction_head": _jax_linear(sd, "reconstruction_head.0"),
+        "head_norm": {"w": _host(sd["mlp_head.0.weight"]), "b": _host(sd["mlp_head.0.bias"])},
+        "head": _jax_linear(sd, "mlp_head.1"),
+    }
+    ca = {name: _jax_linear(sd, f"cross_attention.{name}")
+          for name in ("q_local", "k_global", "v_global", "proj", "out_proj")}
+    if cfg.use_nvit:
+        ca.update(attn_alpha=_host(sd["cross_attention.attn_alpha"]),
+                  sqk=_host(sd["cross_attention.sqk"]))
+    else:
+        ca.update(local_norm=_host(sd["cross_attention.local_norm.weight"]),
+                  global_norm=_host(sd["cross_attention.global_norm.weight"]))
+    params["cross_attention"] = ca
+
+    blocks = []
+    for i in range(cfg.n_layer):
+        prefix = f"transformer.h.{i}"
+        blk = {name: _jax_linear(sd, f"{prefix}.{name}")
+               for name in ("query", "key", "value", "att_c_proj", "c_fc", "mlp_c_proj")}
+        blk["skip_param"] = _host(sd[f"{prefix}.skip_param"])
+        if cfg.use_nvit:
+            blk.update({name: _host(sd[f"{prefix}.{name}"])
+                        for name in ("attn_alpha", "mlp_alpha", "sqk", "suv")})
+        else:
+            blk.update({name: _host(sd[f"{prefix}.{name}.weight"])
+                        for name in ("rmsnorm_att", "rmsnorm_mlp")})
+        blocks.append(blk)
+    params["blocks"] = blocks
+    if cfg.use_nvit:
+        params["sz"] = _host(sd["sz"])
+    return params

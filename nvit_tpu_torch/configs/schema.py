@@ -4,7 +4,9 @@ A copy, not an import: the port and ``chip_smoke.py`` load nothing of the
 JAX package, so they run where only PyTorch is installed.  The field names,
 defaults, derived properties and ``validate`` are the JAX package's, so a
 JAX config converts section by section with ``dataclasses.asdict``;
-``tests/test_torch_core.py`` asserts the two schemas stay equal.  Comments
+``tests/test_torch_core.py`` asserts the two schemas stay equal, and
+``merge_dataclass`` is the JAX package's too: a checkpoint's meta stores
+``Config.to_dict()``, which either package rebuilds into its own config.  Comments
 name the TPU where the JAX package's settings do: they are copied as they
 are, and the port's trainer (``train/trainer.py``) says which settings it
 takes, which it ignores as TPU-only, and which raise until their ROADMAP.md
@@ -271,3 +273,48 @@ class Config:
 
     def to_dict(self) -> dict[str, Any]:
         return dataclasses.asdict(self)
+
+
+def _coerce(value: Any, typ: Any) -> Any:
+    """Coerce a string/scalar override onto a dataclass field type."""
+    if typ is bool:
+        if isinstance(value, bool):
+            return value
+        return str(value).strip().lower() in ("1", "true", "yes", "on")
+    if typ is int:
+        return int(float(value))
+    if typ is float:
+        return float(value)
+    if typ is str:
+        return str(value)
+    return value
+
+
+def merge_dataclass(obj: Any, overrides: dict[str, Any]) -> Any:
+    """Return a copy of frozen dataclass ``obj`` with ``overrides`` applied.
+
+    Nested dicts recurse into nested dataclasses; scalar values are coerced to
+    the declared field type (env vars arrive as strings).  Unknown keys raise,
+    unlike Dynaconf's silent acceptance — the reference's settings→config key
+    gaps (train.py:398-417 omitting kohonen_scheduler_*) were a latent bug we
+    deliberately do not reproduce.
+    """
+    if not overrides:
+        return obj
+    fields = {f.name: f for f in dataclasses.fields(obj)}
+    changes: dict[str, Any] = {}
+    for key, value in overrides.items():
+        key = key.lower()
+        if key not in fields:
+            raise KeyError(f"Unknown config key '{key}' for {type(obj).__name__}")
+        current = getattr(obj, key)
+        if dataclasses.is_dataclass(current):
+            if not isinstance(value, dict):
+                raise TypeError(
+                    f"Config section '{key}' expects nested keys "
+                    f"(e.g. {key.upper()}__SOMEKEY=...), got scalar {value!r}"
+                )
+            changes[key] = merge_dataclass(current, value)
+        else:
+            changes[key] = _coerce(value, type(current))
+    return dataclasses.replace(obj, **changes)

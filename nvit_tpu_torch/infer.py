@@ -6,20 +6,26 @@ Usage::
     p = Predictor.from_config(cfg, seed=0, device="cuda")   # random weights
     labels, probs = p.predict(images_u8)                      # [B,C,H,W] uint8
 
-or ``Predictor(state_dict, cfg.model, device="cuda")`` with a ``state_dict``
-from ``ckpt.convert.state_dict_from_jax``.  Loading checkpoint and export
-files (``from_checkpoint``/``from_export``) comes with the checkpoint slice.
-The forward runs the port's kernels where the model's config selects them.
+or ``Predictor.from_checkpoint(out_dir, "checkpoint_best")`` (a training
+checkpoint, the JAX package's or the port's), ``Predictor.from_export(dest,
+name)`` (a params-only export, ``ckpt/export.py``), or
+``Predictor(state_dict, cfg.model, device="cuda")`` with a ``state_dict``
+from ``ckpt.convert.state_dict_from_jax``.  None of them builds an
+optimizer.  The forward runs the port's kernels where the model's config
+selects them.
 """
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Mapping
 
 import numpy as np
 import torch
 from torch import nn
 
+from nvit_tpu_torch.ckpt.checkpoint import restore_params
+from nvit_tpu_torch.ckpt.export import load_export
 from nvit_tpu_torch.configs import Config, ViTConfig
 from nvit_tpu_torch.data.augment import normalize
 from nvit_tpu_torch.models.vit import ViT
@@ -71,6 +77,20 @@ class Predictor:
         g.manual_seed(seed)
         model = ViT(cfg.model, device=device).init_weights(g)
         return cls(model, cfg.model, device=device, **kw)
+
+    @classmethod
+    def from_checkpoint(cls, out_dir: str | Path, name: str = "checkpoint_best",
+                        **kw) -> "Predictor":
+        """The parameters of a training checkpoint; its moments stay unread."""
+        sd, cfg, _meta = restore_params(out_dir, name)
+        return cls(sd, cfg.model, **kw)
+
+    @classmethod
+    def from_export(cls, dest: str | Path, name: str = "checkpoint_best", **kw) -> "Predictor":
+        """A params-only export (``ckpt/export.py``); bf16 leaves load into
+        the fp32 model exactly."""
+        sd, model_cfg = load_export(dest, name)
+        return cls(sd, model_cfg, **kw)
 
     def predict_probs(self, images_u8) -> np.ndarray:
         """[B, C, H, W] uint8 → softmax probabilities [B, num_classes] (fp32)."""

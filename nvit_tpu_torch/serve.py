@@ -13,23 +13,33 @@ Same contract as the JAX package's server:
 
 Requests are padded up to the next power-of-two batch (≤ max_batch), so the
 device sees a handful of batch shapes; ``batch_window_ms > 0`` coalesces
-concurrent requests into one forward (DynamicBatcher).  Serve with the
-stdlib server::
+concurrent requests into one forward (DynamicBatcher).  From the command
+line, on the card::
+
+    python -m nvit_tpu_torch.serve --checkpoint out --name checkpoint_best --port 8321
+    python -m nvit_tpu_torch.serve --export --checkpoint deploy --warm-buckets
+
+SIGTERM or SIGINT drains: the server stops accepting, answers every request
+it accepted, and exits 0 ("drained; exiting").  SIGHUP reloads the model
+from the same files off the serving path and swaps it in; if the rebuild
+fails, the old model keeps serving.  ``--aot``, ``--int8``,
+``--data-parallel`` and ``--model-parallel`` > 1 are refused, naming their
+ROADMAP.md items.  In a program::
 
     service = InferenceService(Predictor.from_config(cfg, device="cuda"), max_batch=32)
     service.warmup()
     ThreadingHTTPServer((host, port), make_handler(service)).serve_forever()
-
-The command-line ``main()`` comes with checkpoint loading (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import logging
+import signal
 import threading
 import time
-from http.server import BaseHTTPRequestHandler
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
@@ -223,6 +233,7 @@ class InferenceService:
                  batch_window_ms: float = 0.0, builder=None):
         self.predictor = predictor
         self._builder = builder
+        self._warm_all = False
         self._reload_lock = threading.Lock()  # serializes concurrent reloads
         self.max_batch = max_batch
         self._lock = threading.Lock()
@@ -236,12 +247,32 @@ class InferenceService:
         c = predictor.cfg
         self._shape = (c.channels, c.image_size, c.image_size)
 
-    def warmup(self) -> None:
-        """Run one batch-1 request before traffic: builds the kernels (first
-        use) and grows the allocator off the serving clock."""
+    def warmup(self, all_buckets: bool = False) -> None:
+        """Run a batch-1 request before traffic: builds the kernels (first
+        use) and grows the allocator off the serving clock.  ``all_buckets``
+        also runs every batch shape the service can dispatch
+        (``_bucket_sizes``), so no live request meets one first."""
+        self._warm_all = bool(all_buckets)
         self.predict(np.zeros((1, *self._shape), dtype=np.uint8))
+        for b in self._bucket_sizes():
+            if b > 1:
+                self._padded_probs(np.zeros((b, *self._shape), dtype=np.uint8))
         # /stats describes live traffic only
         self.stats = ServingStats()
+
+    def _bucket_sizes(self) -> list[int]:
+        """Every batch shape the service dispatches: bucket 1, and after
+        ``warmup(all_buckets=True)`` the power-of-two ladder and max_batch
+        itself (``_pad_batch`` clamps its top bucket to max_batch)."""
+        buckets = [1]
+        if self._warm_all:
+            b = 2
+            while b < self.max_batch:
+                buckets.append(b)
+                b *= 2
+            if self.max_batch > 1:
+                buckets.append(self.max_batch)
+        return buckets
 
     def reload(self, builder=None) -> None:
         """Hot-swap the model with a freshly built predictor: built and warmed
@@ -264,7 +295,8 @@ class InferenceService:
                     f"contract ({self.model_info['image_size']}px, "
                     f"{self.model_info['num_classes']} classes)"
                 )
-            new.predict_probs(np.zeros((1, *self._shape), dtype=np.uint8))  # warm it
+            for b in self._bucket_sizes():  # warm it on the live service's shapes
+                new.predict_probs(np.zeros((b, *self._shape), dtype=np.uint8))
             with self._lock:
                 self.predictor = new
                 self.model_info = _model_info(new.cfg)
@@ -395,3 +427,82 @@ def make_handler(service: InferenceService):
             self._reply(200, result)
 
     return Handler
+
+
+def main(argv=None) -> None:
+    """Serve a checkpoint (or, with ``--export``, an export) over HTTP."""
+    ap = argparse.ArgumentParser(description="Serve an nvit_tpu_torch checkpoint over HTTP")
+    ap.add_argument("--checkpoint", default="out", help="checkpoint (or export) directory")
+    ap.add_argument("--name", default="checkpoint_best", help="checkpoint name")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=8321, help="0 takes a free port")
+    ap.add_argument("--max-batch", type=int, default=64)
+    ap.add_argument("--batch-window-ms", type=float, default=0.0,
+                    help="dynamic-batching window: concurrent requests arriving within this "
+                         "many ms share one forward (0 = off)")
+    ap.add_argument("--export", action="store_true",
+                    help="load a params-only export (ckpt.export), not a training checkpoint")
+    ap.add_argument("--warm-buckets", action="store_true",
+                    help="run every power-of-two batch bucket at startup")
+    ap.add_argument("--device", default="cuda", help="the card unless 'cpu' is asked for")
+    ap.add_argument("--aot", action="store_true", help="not ported")
+    ap.add_argument("--int8", action="store_true", help="not ported")
+    ap.add_argument("--data-parallel", action="store_true", help="not ported")
+    ap.add_argument("--model-parallel", type=int, default=1, help="not ported beyond 1")
+    args = ap.parse_args(argv)
+    for refused, flag, item in ((args.aot, "--aot", "the remaining entry points"),
+                                (args.int8, "--int8", "int8 serving"),
+                                (args.data_parallel, "--data-parallel", "multi-GPU"),
+                                (args.model_parallel != 1, "--model-parallel > 1", "multi-GPU")):
+        if refused:
+            ap.error(f"{flag} is not ported yet (ROADMAP.md, '{item}')")
+
+    def build() -> Predictor:
+        load = Predictor.from_export if args.export else Predictor.from_checkpoint
+        return load(args.checkpoint, args.name, device=args.device)
+
+    service = InferenceService(build(), max_batch=args.max_batch,
+                               batch_window_ms=args.batch_window_ms, builder=build)
+    t0 = time.perf_counter()
+    service.warmup(all_buckets=args.warm_buckets)
+    print(f"warmed batches {service._bucket_sizes()} in {time.perf_counter() - t0:.3f} s", flush=True)
+
+    class DrainingHTTPServer(ThreadingHTTPServer):
+        # non-daemon handler threads: server_close() joins them, so every
+        # request accepted before the shutdown is answered before the exit
+        daemon_threads = False
+
+    server = DrainingHTTPServer((args.host, args.port), make_handler(service))
+
+    def drain(signum, frame):
+        # a second signal takes the default action: a wedged drain stays killable
+        signal.signal(signal.SIGTERM, signal.SIG_DFL)
+        signal.signal(signal.SIGINT, signal.SIG_DFL)
+        print(f"signal {signum}: draining in-flight requests", flush=True)
+        threading.Thread(target=server.shutdown, daemon=True).start()
+
+    def reload_safe():
+        try:
+            service.reload()
+            print(f"reloaded {args.checkpoint}/{args.name}", flush=True)
+        except Exception as e:  # the old model keeps serving
+            logger.exception("reload failed")
+            print(f"reload failed (still serving the previous model): {e}", flush=True)
+
+    def hup(signum, frame):
+        print("SIGHUP: reloading model", flush=True)
+        threading.Thread(target=reload_safe, daemon=True).start()
+
+    signal.signal(signal.SIGTERM, drain)
+    signal.signal(signal.SIGINT, drain)
+    signal.signal(signal.SIGHUP, hup)
+    host, port = server.server_address[:2]
+    print(f"serving {args.checkpoint}/{args.name} on http://{host}:{port}", flush=True)
+    server.serve_forever()
+    server.server_close()
+    service.close()
+    print("drained; exiting", flush=True)
+
+
+if __name__ == "__main__":
+    main()

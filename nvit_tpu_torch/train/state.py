@@ -1,18 +1,23 @@
 """Training state (≙ nvit_tpu/train/state.py:23-56).
 
 ``TrainState`` holds the model (its parameters), the optimizer state, the
-step and a ``torch.Generator`` in place of the JAX PRNG key.  The two
-frameworks draw different numbers from the same seed, so a fresh state's
+step, a ``torch.Generator`` for the host's randomness, and ``rng``, the
+JAX package's run key (uint32 [2]), which a checkpoint carries bit-exact
+both ways (``ckpt/checkpoint.py``); a fresh state's key is the one the JAX
+package splits from the same seed (``ckpt.tree.run_key``).  The two
+frameworks draw different weights from the same seed, so a fresh state's
 weights are the port's own; the tests carry JAX weights across with
 ``ckpt.convert.state_dict_from_jax``.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
+import numpy as np
 import torch
 
+from nvit_tpu_torch.ckpt.tree import run_key
 from nvit_tpu_torch.configs import Config
 from nvit_tpu_torch.models.vit import ViT
 from nvit_tpu_torch.train.optim import FusedAdamWState, init_fused_adamw
@@ -23,7 +28,9 @@ class TrainState:
     model: ViT
     opt_state: FusedAdamWState
     step: int  # ≙ Trainer.iter_num
-    generator: torch.Generator  # host randomness of the run (≙ the PRNG key)
+    generator: torch.Generator  # host randomness of the run
+    # the JAX package's run key (≙ TrainState.rng); [0, 0] unless given
+    rng: np.ndarray = field(default_factory=lambda: np.zeros(2, np.uint32))
 
 
 def create_train_state(cfg: Config, seed: int | None = None, *, device: torch.device | str) -> TrainState:
@@ -36,7 +43,7 @@ def create_train_state(cfg: Config, seed: int | None = None, *, device: torch.de
     opt_state = init_fused_adamw(model.named_parameters(), cfg.optimizer.moments_dtype)
     rng = torch.Generator()
     rng.manual_seed(seed + 1)
-    return TrainState(model=model, opt_state=opt_state, step=0, generator=rng)
+    return TrainState(model=model, opt_state=opt_state, step=0, generator=rng, rng=run_key(seed))
 
 
 def compute_dtype_of(cfg: Config) -> torch.dtype | None:

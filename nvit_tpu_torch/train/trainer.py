@@ -1,36 +1,64 @@
-"""Trainer: the host loop around the train step (≙ nvit_tpu/train/trainer.py,
-``Trainer.train`` :446-666 and ``estimate_loss`` / ``validate`` /
-``evaluate`` :668-806).
+"""Trainer: the host loop around the train step and the run's lifecycle
+(≙ nvit_tpu/train/trainer.py: ``Trainer.train`` :446-666, ``estimate_loss``
+/ ``validate`` / ``validate_only`` / ``evaluate`` :668-806, the checkpoint
+protocol :808-926, the signal handlers and ``cleanup`` :929-1013, ``main``).
 
 Ported: evaluation at ``eval_interval`` over ``eval_iters`` batches of both
 splits plus the (quick) validation pass, early stopping, a log every
 ``log_interval`` iterations to ``out_dir/metrics.jsonl`` (loss terms,
 learning rate, ``train/batch_time_ms``, ``train/mfu``, norms, memory), the
-``out_dir/stat`` line at every eval, the launch limits, and the ``finished``
-sentinel at ``max_iters``.
+``out_dir/stat`` line at every eval, the launch limits and the relaunch
+protocol:
+
+* checkpoints in the JAX package's format (``ckpt/checkpoint.py``):
+  ``checkpoint_latest`` at every eval when ``always_save_checkpoint`` (and
+  ``checkpoint_<iter>`` with ``save_numbered_checkpoints``),
+  ``checkpoint_best`` on every strict improvement of the val loss whatever
+  the config says, and ``checkpoint_latest`` at exit; the files are
+  written on a thread after a synchronous host copy;
+* ``init_from="resume"`` from ``data.checkpoint_dir`` /
+  ``data.checkpoint_file``: the checkpoint's model config wins over the
+  settings, and the early-stop state (best val loss, patience, eval count)
+  and the mid-epoch batch position carry across launches;
+* the ``finished`` sentinel: ``max_iters:N`` (a resume with a larger
+  ``max_iters`` extends the run) or ``early_stop`` (final);
+* ``eval_only`` (``validate_only``, on a resumed checkpoint);
+* while ``train()`` runs, SIGINT/SIGTERM save ``checkpoint_latest`` and
+  exit 0.  A signal that lands inside a training step waits for the step's
+  end, because the fused update rewrites the parameters and moments in
+  place; a second signal inside the same step exits 1 at once without a
+  save.  ``cleanup()`` puts back the handlers ``train()`` found, so a
+  finished Trainer holds no process-wide state and can be freed.
 
 Not ported yet, and refused at construction with ``NotImplementedError``
-naming the ROADMAP.md item, never skipped silently: checkpoint save and
-resume and ``eval_only``; wandb; AutoAugment and datasets other than
-``synthetic``; ``remat`` and bf16 moments; more than one device; gradient
-histograms, profiling and the NaN sanitizer; Kohonen (``ViT`` raises).  The JAX trainer also writes ``checkpoint_best`` on every
-improvement and ``checkpoint_latest`` at exit whatever the config says;
-this one logs a warning that it does not.  ``jit``, ``compile``,
-``compilation_cache_dir``, ``clear_cache``, ``backend`` and ``device`` are
-TPU/XLA settings with no PyTorch counterpart and are ignored, and so is
+naming the ROADMAP.md item, never skipped silently: wandb (and
+``init_from="wandb"``); AutoAugment and datasets other than ``synthetic``;
+``remat`` and bf16 moments; more than one device; gradient histograms,
+profiling and the NaN sanitizer; Kohonen (``ViT`` raises); orbax
+checkpoints (on ROADMAP.md's do-not-port list).  ``jit``, ``compile``,
+``compilation_cache_dir``, ``clear_cache`` and ``backend`` are TPU/XLA
+settings with no PyTorch counterpart and are ignored, and so is
 ``system.use_tqdm``: the JAX trainer's progress bar changes no result.
+``system.device`` picks the device of ``main`` (the CLI): the CPU when it
+is ``"cpu"``, else the card.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
+import os
+import signal
+import sys
 import time
 from pathlib import Path
+from typing import Any
 
 import numpy as np
 import torch
 
-from nvit_tpu_torch.configs import Config
+from nvit_tpu_torch.ckpt.checkpoint import restore_for_resume, save_checkpoint_async
+from nvit_tpu_torch.configs import Config, load_config
 from nvit_tpu_torch.data.augment import preprocess
 from nvit_tpu_torch.data.datasets import load_dataset
 from nvit_tpu_torch.data.pipeline import iterate_array, to_device
@@ -69,12 +97,16 @@ def check_ported(cfg: Config, device: torch.device) -> None:
     t, s, d = cfg.training, cfg.system, cfg.data
     multi_gpu = s.model_parallel > 1 or (
         s.use_ddp and device.type == "cuda" and torch.cuda.device_count() > 1)
+    if t.init_from not in ("scratch", "resume", "wandb"):
+        raise ValueError(f"Invalid init_from value: {t.init_from}")
+    if d.checkpoint_backend == "orbax":
+        raise NotImplementedError(
+            "data.checkpoint_backend='orbax' is not ported: ckpt/orbax_backend.py is on "
+            "ROADMAP.md's do-not-port list; use 'npz', the JAX package's default")
+    if d.checkpoint_backend != "npz":
+        raise ValueError(f"checkpoint_backend must be 'npz' or 'orbax', got {d.checkpoint_backend!r}")
     unported = [
-        (t.init_from != "scratch", f"training.init_from={t.init_from!r}", "checkpoint files"),
-        (t.eval_only, "training.eval_only", "checkpoint files"),
-        (t.always_save_checkpoint or t.save_numbered_checkpoints,
-         "checkpoint saving (training.always_save_checkpoint / save_numbered_checkpoints)",
-         "checkpoint files"),
+        (t.init_from == "wandb", "training.init_from='wandb'", "wandb"),
         (cfg.wandb.mode != "disabled", f"wandb.mode={cfg.wandb.mode!r}", "wandb"),
         (d.augmentation.enabled and d.augmentation.auto_augment,
          "data.augmentation.auto_augment", "AutoAugment"),
@@ -121,17 +153,26 @@ class Trainer:
         self.last_metrics: dict[str, float] = {}
         self.metrics_writer: MetricsWriter | None = None
 
-        self.state = create_train_state(cfg, device=self.device)
+        if cfg.training.init_from == "scratch":
+            self.state = create_train_state(cfg, device=self.device)
+        else:
+            self._resume(cfg.data.checkpoint_dir, cfg.data.checkpoint_file.removesuffix(".npz"))
+            cfg = self.cfg
         self._train_step = make_train_step(cfg, log_norms=False)
         self._train_step_norms = (make_train_step(cfg, log_norms=True)
                                   if cfg.system.log_gpu_stats else self._train_step)
         self._eval_step = make_eval_step(cfg)
 
+        self._pending_saves: list = []
+        self._in_step = False  # True while a step rewrites the state in place
+        self._deferred_signal: int | None = None
+        self._cleaned = False  # cleanup() runs once per launch (signal paths enter twice)
+        self._skip_final_save = False  # the state may be half-updated: no final save
+        self._prev_handlers: dict | None = None  # train()'s signal handlers are installed
+
         n = num_params(self.state.model)
         self.logger.info("Model: %.2fM params | nvit=%s kohonen=%s | %s on %s", n / 1e6,
                          cfg.model.use_nvit, cfg.model.use_kohonen, cfg.data.dataset, self.device)
-        self.logger.warning("checkpoint_best and the final checkpoint_latest are not written: "
-                            "checkpoint files are not ported yet (ROADMAP.md, 'checkpoint files')")
         if cfg.system.quick_validation and cfg.training.full_eval_interval == 0:
             # ≙ nvit_tpu/train/trainer.py:288-299: the reference's evaluate()
             # always runs the full val pass; here best-model selection and
@@ -143,6 +184,24 @@ class Trainer:
                 "every Nth eval", cfg.system.quick_validation_size,
             )
         self._flops_per_iter = estimate_flops_per_iter(cfg.model, n) * cfg.training.batch_size
+
+    def _resume(self, ckpt_dir: str, name: str) -> None:
+        """init_from="resume" (≙ trainer.py:189-224): the MODEL config comes
+        from the checkpoint, the rest from the settings; the early-stop
+        protocol's state from the checkpoint's meta."""
+        state, saved_cfg, meta = restore_for_resume(ckpt_dir, name, device=self.device)
+        if saved_cfg.model != self.cfg.model:
+            self.logger.warning("checkpoint model config differs from settings; using checkpoint's")
+            self.cfg = dataclasses.replace(self.cfg, model=saved_cfg.model)
+        self.state = state
+        self.iter_num = meta["iter_num"]
+        tmeta = meta.get("trainer") or {}
+        if tmeta.get("best_val_loss") is not None:
+            self.best_val_loss = float(tmeta["best_val_loss"])
+        self.early_stopping_counter = int(tmeta.get("early_stopping_counter", 0))
+        self._eval_count = int(tmeta.get("eval_count", 0))
+        self.logger.info("Resumed from iteration %d (best_val_loss=%s, patience=%d)",
+                         self.iter_num, self.best_val_loss, self.early_stopping_counter)
 
     # ------------------------------------------------------------------ data
     def _load_data(self) -> None:
@@ -195,12 +254,17 @@ class Trainer:
         tc = cfg.training
         try:
             tlaunch = time.time()
+            self._cleaned = False  # re-arm cleanup for this launch
+            self._install_signal_handlers()
             self._load_data()
             if len(self.trainset) < tc.batch_size:
                 raise ValueError(f"training dataset ({len(self.trainset)} examples) is smaller "
                                  f"than one batch ({tc.batch_size})")
             self.metrics_writer = MetricsWriter(self.out_dir, wandb_mode=cfg.wandb.mode)
-            if self.iter_num == 0:
+            if tc.init_from == "resume" and not self._sentinel_allows_resume():
+                self.logger.info("finished sentinel present; not relaunching")
+                return
+            if self.iter_num == 0 and tc.init_from == "scratch":
                 write_stat_line(self.out_dir, iter_num=0, lr=0.0, train_loss=0.0, val_loss=0.0,
                                 model=self.state.model, cfg=cfg, append=False)
             timer = StepTimer(self._flops_per_iter, device_peak_flops(self.device))
@@ -212,6 +276,7 @@ class Trainer:
                         or time.time() - tlaunch >= tc.time_limit_seconds or self.finished)
 
             while not stop():
+                # a resumed launch skips the batches its epoch already trained on
                 for imgs_u8, labels in self._epoch_iter(
                     self.trainset, epoch=epoch, shuffle=True,
                     start_batch=max(0, self.iter_num - epoch * self.steps_per_epoch),
@@ -228,21 +293,55 @@ class Trainer:
                     # the norms variant only on iterations whose metrics are logged
                     step_fn = (self._train_step_norms if (self.iter_num + 1) % tc.log_interval == 0
                                else self._train_step)
+                    # the step rewrites the state in place: a signal handler
+                    # that fires meanwhile defers to the boundary below
+                    self._in_step = True
                     self.state, step_metrics = step_fn(self.state, images, labels)
+                    self._in_step = False
                     self.iter_num += 1
                     local_iter += 1
+                    if self._deferred_signal is not None:
+                        self.logger.info("Handling deferred signal %s at step boundary",
+                                         self._deferred_signal)
+                        self.cleanup()
+                        sys.exit(0)
                     if self.iter_num % tc.log_interval == 0:
                         self._log_step(step_metrics, timer)
                 epoch += 1
 
+            # a run that reached max_iters is done; launch limits do not mark it
             if self.iter_num >= tc.max_iters and not self.finished:
                 self.logger.info("Reached max_iters (%d); writing finished sentinel", tc.max_iters)
                 self.mark_training_finished(f"max_iters:{tc.max_iters}")
         except Exception as e:
+            if self._in_step:  # raised inside the in-place update: the state may be torn
+                self._skip_final_save = True
             self.logger.error("training failed: %s", e)
             raise
         finally:
             self.cleanup()
+
+    def _sentinel_allows_resume(self) -> bool:
+        """The ``finished`` sentinel rule (≙ trainer.py:470-498): a
+        ``max_iters:N`` sentinel is cleared by a resume with ``max_iters > N``
+        (an extension of a completed run); any other sentinel (early stop)
+        is final."""
+        sentinel = self.out_dir / "finished"
+        if not sentinel.exists():
+            return True
+        text = sentinel.read_text().strip()
+        done_at = None
+        if text.startswith("max_iters:"):
+            try:
+                done_at = int(text.split(":", 1)[1])
+            except ValueError:
+                done_at = None
+        if done_at is None or self.cfg.training.max_iters <= done_at:
+            return False
+        self.logger.info("finished sentinel from a completed max_iters=%d run; extending to "
+                         "max_iters=%d", done_at, self.cfg.training.max_iters)
+        sentinel.unlink(missing_ok=True)
+        return True
 
     def _log_step(self, step_metrics: dict[str, torch.Tensor], timer: StepTimer) -> None:
         tc = self.cfg.training
@@ -302,9 +401,20 @@ class Trainer:
         means = torch.stack(collected).cpu().double().mean(dim=0).tolist()
         return {f"val/{k}": v for k, v in zip(keep, means)}
 
+    def validate_only(self) -> dict[str, float]:
+        """``eval_only``: the full validation pass on the resumed checkpoint
+        (≙ trainer.py:738-746)."""
+        self.logger.info("Running in validation-only mode")
+        if self.cfg.training.init_from != "resume":
+            raise ValueError("Must provide a checkpoint to run validation-only mode")
+        self._load_data()
+        metrics = self.validate()
+        self.logger.info("Validation metrics: %s", metrics)
+        return metrics
+
     def evaluate(self) -> dict[str, float]:
-        """Periodic eval: validate + estimate_loss + early stop
-        (≙ trainer.py:evaluate, without its checkpoint writes)."""
+        """Periodic eval: validate + estimate_loss + early stop + checkpoints
+        (≙ trainer.py:evaluate)."""
         cfg = self.cfg
         self._eval_count += 1
         full = (cfg.training.full_eval_interval > 0
@@ -318,9 +428,19 @@ class Trainer:
         }
         self.last_metrics = dict(metrics)
         self.metrics_writer.log(metrics, step=self.iter_num)
-        if self._should_stop_early(metrics["val/loss"]):
+        # strict improvement, read before _should_stop_early updates the best
+        val_loss = metrics["val/loss"]
+        improved = self.best_val_loss is None or val_loss < self.best_val_loss
+        if self._should_stop_early(val_loss):
             self.logger.info("Early stopping triggered!")
             self.mark_training_finished()
+        if self.iter_num > 0:
+            if cfg.training.always_save_checkpoint:
+                self.save(metrics)
+            if improved:
+                # whatever always_save_checkpoint says, and only here: the
+                # weights saved are the ones that earned the improvement
+                self.save_best(metrics)
         return metrics
 
     def _should_stop_early(self, val_loss: float) -> bool:
@@ -333,12 +453,115 @@ class Trainer:
             self.early_stopping_counter += 1
         return self.early_stopping_counter >= self.cfg.training.early_stopping_patience
 
+    # ------------------------------------------------------------ checkpoint
+    def _join_pending_saves(self) -> None:
+        """Wait for the file writes in flight; re-raise a failed one, so a run
+        never goes on logging saves that did not land."""
+        pending, self._pending_saves = self._pending_saves, []
+        for save in pending:
+            save.result()
+
+    def _trainer_meta(self) -> dict[str, Any]:
+        """The early-stop protocol's state, carried across launches in the meta."""
+        return {"best_val_loss": self.best_val_loss,
+                "early_stopping_counter": self.early_stopping_counter,
+                "eval_count": self._eval_count}
+
+    def _save_one(self, name: str, metrics: dict[str, Any] | None) -> None:
+        self._pending_saves.append(save_checkpoint_async(
+            self.out_dir, name, self.state, self.cfg, metrics, self._trainer_meta()))
+
+    def save(self, metrics: dict[str, Any] | None = None) -> None:
+        """checkpoint_latest (and checkpoint_<iter> with save_numbered_checkpoints):
+        the host copy now, the file writes on a thread."""
+        self._join_pending_saves()
+        t0 = time.time()
+        metrics = metrics or self.last_metrics
+        self._save_one("checkpoint_latest", metrics)
+        if self.cfg.training.save_numbered_checkpoints:
+            self._save_one(f"checkpoint_{self.iter_num:07d}", metrics)
+        self.logger.info("Checkpoint snapshot time: %.2f sec", time.time() - t0)
+
+    def save_best(self, metrics: dict[str, Any]) -> None:
+        """checkpoint_best, from evaluate() on a strict improvement only."""
+        self._join_pending_saves()
+        self._save_one("checkpoint_best", metrics)
+
     def mark_training_finished(self, reason: str = "early_stop") -> None:
-        """The relaunch protocol's sentinel (≙ trainer.py:mark_training_finished)."""
+        """The relaunch protocol's sentinel (≙ trainer.py:mark_training_finished):
+        ``early_stop`` is final, ``max_iters:N`` lets a resume with a larger
+        ``max_iters`` extend the run."""
         self.finished = True
         (self.out_dir / "finished").write_text(reason)
 
+    # --------------------------------------------------------------- cleanup
+    def _install_signal_handlers(self) -> None:
+        """SIGINT/SIGTERM → save checkpoint_latest, clean up, exit 0
+        (≙ trainer.py:929-974), until cleanup() restores the previous ones."""
+
+        def handler(signum, frame):
+            if self._in_step:
+                if self._deferred_signal is not None:
+                    # a second signal while the same step still runs: the
+                    # step may hang, so exit now, without the torn state
+                    self.logger.warning(
+                        "Second signal %s while a step is in flight — forcing exit without "
+                        "a final save (resume from the last periodic checkpoint)", signum)
+                    self._skip_final_save = True
+                    self.cleanup()
+                    sys.exit(1)
+                # the update rewrites parameters and moments one by one: a
+                # save from here could hold half of them updated
+                self._deferred_signal = signum
+                self.logger.info("Received signal %s mid-step; deferring cleanup to the "
+                                 "step boundary", signum)
+                return
+            self.logger.info("Received signal %s. Performing cleanup...", signum)
+            self.cleanup()
+            sys.exit(0)
+
+        try:
+            prev = {s: signal.signal(s, handler) for s in (signal.SIGINT, signal.SIGTERM)}
+        except ValueError:
+            return  # not the main thread
+        if self._prev_handlers is None:
+            self._prev_handlers = prev
+
+    def _restore_signal_handlers(self) -> None:
+        prev, self._prev_handlers = self._prev_handlers, None
+        for signum, handler in (prev or {}).items():
+            signal.signal(signum, handler)
+
     def cleanup(self) -> None:
-        if self.metrics_writer is not None:
-            self.metrics_writer.finish()
-            self.metrics_writer = None
+        """The final checkpoint_latest, the pending writes, the sinks (≙
+        trainer.py:976-1013).  checkpoint_best is evaluate()'s alone.  Runs
+        once per launch (a signal reaches it twice) and never raises."""
+        self._restore_signal_handlers()
+        if self._cleaned:
+            return
+        self._cleaned = True
+        try:
+            if not self._skip_final_save and self.iter_num > 0:
+                self.save(self.last_metrics)
+            self._join_pending_saves()  # do not exit while a write is in flight
+            if self.metrics_writer is not None:
+                self.metrics_writer.finish()
+                self.metrics_writer = None
+        except Exception as e:  # teardown must not mask the exit path
+            self.logger.error("Error during cleanup: %s", e)
+
+
+def main() -> None:
+    """``python -m nvit_tpu_torch``: load the config (``settings.yaml``, the
+    environment) and train, or validate under ``eval_only`` — on the card
+    unless ``system.device`` is ``"cpu"``.  One process drives one card; the
+    JAX package's multi-host launch (``NVIT_MULTIHOST=1``) is not ported."""
+    if os.environ.get("NVIT_MULTIHOST") == "1":
+        raise NotImplementedError("NVIT_MULTIHOST=1: several processes or cards are not ported "
+                                  "yet (ROADMAP.md, 'multi-GPU')")
+    cfg = load_config()
+    trainer = Trainer(cfg, device="cpu" if cfg.system.device == "cpu" else "cuda")
+    if trainer.cfg.training.eval_only:
+        trainer.validate_only()
+    else:
+        trainer.train()

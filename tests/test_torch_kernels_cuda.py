@@ -808,3 +808,46 @@ def test_gated_mlp_kernels_are_deterministic(cuda, kernel):
         got, again = (gated_mlp_fwd(x, w, b) for _ in range(2))
     torch.cuda.synchronize()
     assert torch.equal(as_bytes(got), as_bytes(again))
+
+
+@pytest.mark.cuda
+def test_checkpoint_resume_on_the_card_is_bit_equal(cuda, tmp_path):
+    """A tiny nViT trained on the card (K1–K4 and the prologue in every
+    step): four straight steps against two, a checkpoint, a resume and two
+    more — every leaf of the final checkpoint bit-equal; the restored state
+    equal to the one saved."""
+    import numpy as np
+
+    from nvit_tpu_torch import configs
+    from nvit_tpu_torch.ckpt.checkpoint import restore_for_resume, state_leaves
+    from nvit_tpu_torch.models.presets import preset
+    from nvit_tpu_torch.train.trainer import Trainer
+
+    model = preset("nvit-tiny4")
+    model.update(n_layer=1, num_classes=10, image_size=16, flash_attn=True, gated_mlp_kernel="on")
+
+    def config(out, **training):
+        return configs.Config(
+            model=configs.ViTConfig(**model),
+            training=configs.TrainingConfig(batch_size=8, max_iters=4, eval_interval=2, log_interval=1,
+                                            eval_iters=1, **training),
+            optimizer=configs.OptimizerConfig(warmup_iters=0, lr_decay_iters=10),
+            system=configs.SystemConfig(remat=False, quick_validation_size=8),
+            data=configs.DataConfig(dataset="synthetic", out_dir=str(out), checkpoint_dir=str(out),
+                                    augmentation=configs.AugmentationConfig(auto_augment=False)))
+
+    def leaves(out):
+        with np.load(out / "checkpoint_latest.npz") as z:
+            return [z[f"leaf_{i}"] for i in range(len(z.files))]
+
+    Trainer(config(tmp_path / "a"), device=cuda).train()
+    Trainer(config(tmp_path / "b", max_iters_per_launch=2), device=cuda).train()
+    resumed = Trainer(config(tmp_path / "b", init_from="resume"), device=cuda)
+    assert resumed.iter_num == 2
+    resumed.train()
+    a, b = leaves(tmp_path / "a"), leaves(tmp_path / "b")
+    assert len(a) == len(b) and all(np.array_equal(x, y) for x, y in zip(a, b))
+    state, cfg, meta = restore_for_resume(tmp_path / "b", "checkpoint_latest", device=cuda)
+    assert meta["iter_num"] == 4 and cfg.model == configs.ViTConfig(**model)
+    assert next(state.model.parameters()).is_cuda
+    assert all(np.array_equal(x, y) for x, y in zip(state_leaves(state), b))

@@ -287,14 +287,18 @@ def test_reload_swaps_model_and_keeps_geometry():
 
 # ------------------------------------------------------------ package hygiene
 def test_package_imports_no_jax():
-    """Neither jax nor the JAX package: the port runs where only PyTorch is."""
+    """Neither jax, the JAX package nor ml_dtypes: the port runs where only
+    PyTorch is (its checkpoints read and write bf16 without ml_dtypes)."""
     code = (
         "import sys, nvit_tpu_torch, nvit_tpu_torch.serve, nvit_tpu_torch.ckpt.convert, "
         "nvit_tpu_torch.train.trainer, nvit_tpu_torch.train.step, nvit_tpu_torch.train.optim, "
         "nvit_tpu_torch.data.datasets, nvit_tpu_torch.data.pipeline, nvit_tpu_torch.obs.metrics, "
         "nvit_tpu_torch.models.presets, nvit_tpu_torch.models.blocks, nvit_tpu_torch.ops.attention, "
-        "nvit_tpu_torch.ops.flash_attention, nvit_tpu_torch.scripts.attn_bwd_split_bench; "
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'nvit_tpu')); "
+        "nvit_tpu_torch.ops.flash_attention, nvit_tpu_torch.scripts.attn_bwd_split_bench, "
+        "nvit_tpu_torch.__main__, nvit_tpu_torch.ckpt.tree, nvit_tpu_torch.ckpt.checkpoint, "
+        "nvit_tpu_torch.ckpt.export, nvit_tpu_torch.configs.loader, nvit_tpu_torch.infer; "
+        "bad = sorted(m for m in sys.modules "
+        "if m.split('.')[0] in ('jax', 'jaxlib', 'nvit_tpu', 'ml_dtypes')); "
         "assert not bad, bad"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)

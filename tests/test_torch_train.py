@@ -12,7 +12,8 @@
 * the data path: ``make_synthetic`` arrays, epoch order and batches equal to
   the JAX package's;
 * the trainer: a few iterations on tiny synthetic data write
-  ``metrics.jsonl``; every unported setting raises at construction.
+  ``metrics.jsonl``; every unported setting raises at construction, and
+  the checkpoint settings, ported since, are taken.
 """
 
 import dataclasses
@@ -357,10 +358,28 @@ def test_entry_points_default_to_the_card(tmp_path):
             build()
 
 
+@pytest.mark.parametrize("kw", [dict(init_from="resume"), dict(eval_only=True),
+                                dict(always_save_checkpoint=True)])
+def test_trainer_takes_the_checkpoint_settings(tmp_path, kw):
+    """Ported with the checkpoint files (tests/test_torch_ckpt.py has the
+    lifecycle): each setting is taken, and init_from="resume" restores the
+    checkpoint a Trainer wrote, which a fresh init does not reproduce."""
+    first = Trainer(trainer_config(tmp_path), device="cpu")
+    with torch.no_grad():
+        for p in first.state.model.parameters():
+            p.add_(1.0)
+    first.save()
+    first.cleanup()  # joins the write
+    trainer = Trainer(trainer_config(tmp_path, training=kw, data=dict(checkpoint_dir=str(tmp_path))),
+                      device="cpu")
+    ((field, value),) = kw.items()
+    assert getattr(trainer.cfg.training, field) == value
+    restored = all(torch.equal(a, b) for a, b in
+                   zip(first.state.model.parameters(), trainer.state.model.parameters()))
+    assert restored == (field == "init_from")
+
+
 @pytest.mark.parametrize("section,kw,item", [
-    ("training", dict(init_from="resume"), "checkpoint files"),
-    ("training", dict(eval_only=True), "checkpoint files"),
-    ("training", dict(always_save_checkpoint=True), "checkpoint files"),
     ("wandb", dict(mode="offline"), "wandb"),
     ("data", dict(augmentation=port_schema.AugmentationConfig()), "AutoAugment"),
     ("data", dict(dataset="cifar100"), "datasets"),
@@ -370,6 +389,8 @@ def test_entry_points_default_to_the_card(tmp_path):
     ("system", dict(profile_steps=2), "observability"),
     ("model", dict(use_kohonen=True), "Kohonen"),
     ("system", dict(debug_nans=True), "observability"),
+    ("training", dict(init_from="wandb"), "wandb"),
+    ("data", dict(checkpoint_backend="orbax"), "do-not-port"),
 ])
 def test_trainer_refuses_unported_settings(tmp_path, section, kw, item):
     with pytest.raises(NotImplementedError, match=item):
