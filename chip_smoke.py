@@ -88,7 +88,27 @@ then the run's lifecycle at nViT-B/16 full width:
                /predict at batches 1 and 32 against Predictor.from_checkpoint
                on the fp32 checkpoint, SIGHUP → "reloaded", SIGTERM →
                "drained; exiting" and exit 0.  The files live in a temporary
-               directory, removed at the end.
+               directory, removed at the end;
+then the data path:
+11. data    — a CIFAR-100 python-format tree (50,000 + 10,000 class-structured
+               images from a seed) and ``python -m nvit_tpu_torch`` with
+               profiles/nvit1_k0.env and nvit0_k0.env on the packaged
+               settings.yaml (batch 512, 32 px, 2 layers, d = 64, bias,
+               AutoAugment, remat, num_workers 4, prefetch 2; only the
+               directories, max_iters 60, eval_interval 30, eval_iters 2 and
+               log_interval 10 set): exit 0, the logged steps, the loss
+               falling, ``finished`` = max_iters:60; nvit1_k1.env refused
+               naming Kohonen; path A (``flagship_config(bias=True)``) under
+               remat against no remat on the same weights and batch: loss and
+               every gradient bit-equal, step ms and peak memory, the launches
+               per step (the QK-norm and gated forwards once more per
+               rematted site, also with ``remat_skip_blocks=2``); AutoAugment's
+               ms at [32, 3, 224, 224] (ImageNet policy) and [512, 3, 32, 32]
+               (CIFAR), bit-equal for the same (run key, step);
+               Trainer.train() with remat and AutoAugment through
+               make_epoch_iterator and device_prefetch (the loop's wait for a
+               batch); an ImageNet-layout folder of JPEGs decoded (the loader's
+               route, ms per batch) and trained on through iterate_folder.
 
 K9 is not on any main path (T = 784 ≤ 1024 takes K8), nor is K10 (only the
 bench runs it), so their launch counts in the summary are 0 per training
@@ -411,8 +431,9 @@ def kernel_phase() -> dict:
     print(f"tolerance: bf16 outputs {KERNEL_TOL}, lse {LSE_TOL}, fp32 dsqk max|Δ| <= "
           f"{DSQK_RTOL} x max|dsqk_ref|")
     errs = {name: 0.0 for name in KERNELS}
-    for (b, h, t, d), view in (((4, 12, 784, 64), False), ((2, 4, 100, 32), False),
-                               ((4, 12, 784, 64), True), ((2, 4, 100, 32), True)):
+    prof, _ = profile_shapes()  # the profiles' step (batch 512, 32 px): blocks and cross-attention
+    for (b, h, t, d), view in (((4, 12, 784, 64), False), ((2, 4, 100, 32), False), (prof, False),
+                               ((4, 12, 784, 64), True), ((2, 4, 100, 32), True), (prof, True)):
         q, k, v, sqk = qkv_view_inputs(b, h, t, d, seed=t + 5)[:4] if view else attn_inputs(b, h, t, d, seed=t)
         scale = float(d) ** 0.5
         o, lse = qknorm_attention_fwd(q, k, v, sqk, scale, with_lse=True)
@@ -425,7 +446,7 @@ def kernel_phase() -> dict:
         torch.testing.assert_close(lse, lse_ref, **LSE_TOL)
         errs["qknorm_attn_fwd"] = max(errs["qknorm_attn_fwd"], eo)
 
-    for b, h, t, d in ((4, 12, 784, 64), (2, 4, 100, 32)):  # strided QKV views, ragged T
+    for b, h, t, d in ((4, 12, 784, 64), (2, 4, 100, 32), prof):  # strided QKV views, ragged T
         q, k, v, sqk, do = qkv_view_inputs(b, h, t, d, seed=t + 1)
         scale = float(d) ** 0.5
         o, lse = qknorm_attention_fwd(q, k, v, sqk, scale, with_lse=True)
@@ -507,7 +528,7 @@ def project_kernel_checks(errs: dict) -> None:
     another order), the padded lse copied exactly, Δ to fp32 order."""
     from nvit_tpu_torch.ops import flash_attention as fa
 
-    for b, h, t, d in ((32, 12, 784, 64), (2, 4, 100, 32)):
+    for b, h, t, d in ((32, 12, 784, 64), (2, 4, 100, 32), profile_shapes()[0]):
         q, k, v, sqk, do = qkv_view_inputs(b, h, t, d, seed=t + 30)
         scale = float(d) ** 0.5
         o, lse = fa.qknorm_attention_fwd(q, k, v, sqk, scale, with_lse=True)
@@ -537,8 +558,9 @@ def baseline_kernel_checks(errs: dict) -> None:
     their prologue against its twin, and FlashAttnFn's CUDA gradients."""
     from nvit_tpu_torch.ops import flash_attention as fa
 
-    # the flagship; ragged T, head dim 32; below one tile (one ragged tile in the ring)
-    for b, h, t, d in ((4, 12, 784, 64), (2, 4, 100, 32), (1, 2, 40, 64)):
+    # the flagship; ragged T, head dim 32; below one tile (one ragged tile in
+    # the ring); the profiles' step
+    for b, h, t, d in ((4, 12, 784, 64), (2, 4, 100, 32), (1, 2, 40, 64), profile_shapes()[0]):
         q, k, v, _, do = qkv_view_inputs(b, h, t, d, seed=t + 2)
         scale = 1.0 / float(d) ** 0.5
         o, lse = fa.flash_attention_fwd(q, k, v, scale, with_lse=True)
@@ -685,7 +707,7 @@ def bias_bounded_kernel_checks(errs: dict) -> None:
     del q, k, v, o, lse, o_arm, lse_arm, lse_other
 
     for n, k, h, what in ((32 * 784, 768, 3072, "c_fc"), (32 * 784, 768, 768, "proj"),
-                          (784 + 17, 768, 768, "ragged")):
+                          (784 + 17, 768, 768, "ragged"), *profile_shapes()[1]):
         x, w = mlp_inputs(n, k, h, seed=n + h + 2)
         bias = bias_inputs(h, seed=h + 3)
         g = mlp_grad(n, h, seed=n + h + 4)
@@ -1259,12 +1281,6 @@ BIAS_GROUPS = {
 }
 
 
-def sync_step(step, state, images, labels):
-    out = step(state, images, labels)
-    torch.cuda.synchronize()
-    return out
-
-
 def randomize_biases(model, seed: int) -> None:
     """normal(0, 0.02) biases in every block and the cross-attention (the
     init zeroes them), so the bias kernels' forwards add something."""
@@ -1335,6 +1351,7 @@ def compare_gradients(cfg, model, plain_cfg, plain_model, images, labels, grad_g
 def step_launches(cfg, path, state, images, labels) -> dict:
     """One make_train_step step launches each of the path's kernels once per
     block and once for the shared cross-attention, and no other kernel."""
+    from nvit_tpu_torch.scripts.step_time import sync_step
     from nvit_tpu_torch.train.step import make_train_step
 
     step = make_train_step(cfg)
@@ -1352,6 +1369,7 @@ def train_phase(smi: str, title: str, path: str, cfg, grad_groups: dict) -> dict
 
     from nvit_tpu_torch.configs import AugmentationConfig
     from nvit_tpu_torch.models.vit import estimate_flops_per_iter, num_params
+    from nvit_tpu_torch.scripts.step_time import step_ms, sync_step
     from nvit_tpu_torch.train.optim import init_fused_adamw
     from nvit_tpu_torch.train.state import TrainState, create_train_state
     from nvit_tpu_torch.train.step import make_train_step
@@ -1390,7 +1408,7 @@ def train_phase(smi: str, title: str, path: str, cfg, grad_groups: dict) -> dict
     got = {"plain": [], "kernel": []}
     for name in ("plain", "kernel", "kernel", "plain"):
         fn, st = hot[name]
-        got[name].append(host_ms(lambda: sync_step(fn, st, images, labels), 3))
+        got[name].append(step_ms(fn, st, images, labels, 3))
     flops = estimate_flops_per_iter(m, num_params(state.model)) * b
     step_times = {}
     for name in ("kernel", "plain"):
@@ -1807,6 +1825,344 @@ def lifecycle_phase(smi: str) -> dict:
     return launches
 
 
+# the data phase: the profiles as users run them, path A under remat and
+# AutoAugment, the ImageNet folder path
+PROFILE_OVERRIDES = {"NVIT_TRAINING__MAX_ITERS": "60", "NVIT_TRAINING__EVAL_INTERVAL": "30",
+                     "NVIT_TRAINING__EVAL_ITERS": "2", "NVIT_TRAINING__LOG_INTERVAL": "10"}
+CIFAR_TRAIN, CIFAR_TEST = 50_000, 10_000
+DATA_TRAINER_ITERS = 6  # path A, synthetic 224 px data, AutoAugment and remat on
+FOLDER_ITERS = 4  # path A from a JPEG folder
+# path A's remat_skip_blocks beside remat over every block
+REMAT_SKIP = 2
+
+
+def remat_launches(path: str, n_rematted: int, n_pass: int) -> dict:
+    """Launches per step of ``path`` under remat: the step's own (once per
+    pass: the cross-attention and each block), and the serving forward's
+    kernels again for each of the ``n_rematted`` recomputed passes (the
+    QK-norm prologue runs before every forward)."""
+    want = per_pass(PATHS[path]["step"], n_pass)
+    for name, count in per_pass(PATHS[path]["forward"], n_rematted).items():
+        want[name] = want.get(name, 0) + count
+    return want
+
+
+def profile_config(name: str, **env):
+    """(config, variables) of ``python -m nvit_tpu_torch`` with
+    profiles/<name>.env and ``env``, run from a directory with no
+    settings.yaml, .env or secrets.yaml of its own: the packaged settings."""
+    import os
+
+    import nvit_tpu_torch.configs
+    from nvit_tpu_torch.configs import load_config, read_dotenv
+
+    env = {**read_dotenv(Path(__file__).resolve().parent / "profiles" / f"{name}.env"), **env}
+    settings = Path(nvit_tpu_torch.configs.__file__).parent / "settings.yaml"
+    return load_config(settings, dotenv_path=os.devnull, secrets_file=os.devnull, env=env), env
+
+
+def profile_shapes() -> tuple[tuple, list]:
+    """The shapes the profiles' step gives the kernels (a profile changes
+    no width): attention [B, H, T, D] — the blocks' and the
+    cross-attention's, whose local and global streams both have T tokens —
+    and the gated GEMMs (n, K, hidden, what): c_fc and the cross-attention's
+    proj."""
+    cfg, _ = profile_config("nvit1_k0")
+    m, b = cfg.model, cfg.training.batch_size
+    n = b * m.n_patches
+    return ((b, m.n_head, m.n_patches, m.head_dim),
+            [(n, m.n_embd, 4 * m.n_embd, "profile c_fc"), (n, m.n_embd, m.n_embd, "profile proj")])
+
+
+def profile_step(name: str, cfg, smi: str) -> dict:
+    """One training step of a profile's config in this process, at its
+    batch from the CIFAR-100 files through the pipeline, AutoAugment and
+    remat, with every count set to 0 just before → its launches, checked
+    against the path's under remat; then its step time."""
+    from nvit_tpu_torch.data.augment import preprocess
+    from nvit_tpu_torch.data.autoaugment import step_generator
+    from nvit_tpu_torch.data.datasets import load_dataset
+    from nvit_tpu_torch.data.pipeline import device_prefetch, make_epoch_iterator
+    from nvit_tpu_torch.scripts.step_time import step_ms, sync_step
+    from nvit_tpu_torch.train.state import create_train_state
+    from nvit_tpu_torch.train.step import make_train_step
+    from nvit_tpu_torch.train.trainer import check_ported
+
+    m, d, tc = cfg.model, cfg.data, cfg.training
+    aug = d.augmentation.enabled and d.augmentation.auto_augment
+    check(cfg.system.remat and aug and m.bias and tc.batch_size == 512 and m.image_size == 32,
+          f"{name}: the profile's config drifted")
+    check_ported(cfg, torch.device("cuda"))
+    ds = load_dataset(d.dataset, d.data_dir, train=True, image_size=m.image_size, num_classes=m.num_classes)
+    batches = device_prefetch(make_epoch_iterator(ds, batch_size=tc.batch_size, epoch=0, seed=tc.seed,
+                                                  shuffle=True, num_workers=d.num_workers), "cuda", size=d.prefetch)
+    imgs_u8, labels = next(batches)
+    batches.close()
+    state = create_train_state(cfg, device="cuda")
+    images = preprocess(imgs_u8, step_generator(state.rng, 0), train=True, dataset=d.dataset, auto_augment=aug)
+    step = make_train_step(cfg, log_norms=False)
+    reset_counts()
+    sync_step(step, state, images, labels)
+    launches = read_counts()
+    path = "nvit-bias" if m.use_nvit else "baseline-bias"
+    n_pass = 1 + m.n_layer
+    launched = {k: v for k, v in launches.items() if v}
+    print(f"  {name} in this process, one step at batch {tc.batch_size} ({path} kernels, remat over "
+          f"{n_pass - cfg.system.remat_skip_blocks} of {n_pass} passes): launches {launched}")
+    check_launches(launches, remat_launches(path, n_pass - cfg.system.remat_skip_blocks, n_pass),
+                   f"{name}: one step")
+    ms = step_ms(step, state, images, labels, 5)
+    print(f"  {name} step alone (host clock, median of 5, after the counted one): {ms:.3f} ms, "
+          f"{tc.batch_size * 1e3 / ms:.0f} img/s [{smi}]")
+    del state, step, images
+    torch.cuda.empty_cache()
+    return launches
+
+
+def write_cifar100(root: Path, seed: int) -> None:
+    """A CIFAR-100 python-format tree (``cifar-100-python/train`` and
+    ``test``): class-structured images from ``make_synthetic``."""
+    import pickle
+
+    from nvit_tpu_torch.data.datasets import make_synthetic
+
+    base = root / "cifar-100-python"
+    base.mkdir(parents=True)
+    for split, n, s in (("train", CIFAR_TRAIN, seed), ("test", CIFAR_TEST, seed + 1)):
+        d = make_synthetic(num_examples=n, image_size=32, num_classes=100, seed=s)
+        (base / split).write_bytes(pickle.dumps({
+            b"data": d.images.reshape(n, 3072), b"fine_labels": d.labels.tolist(),
+            b"coarse_labels": (d.labels // 5).tolist()}, protocol=4))
+
+
+def write_jpeg_folder(root: Path, classes: int, per_class: dict, seed: int) -> None:
+    """``<root>/imagenet/<split>/n<class>/*.JPEG``, 320×256 class-coloured noise."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    tints = rng.integers(0, 256, (classes, 3))
+    for split, n in per_class.items():
+        for c in range(classes):
+            folder = root / "imagenet" / split / f"n{c:08d}"
+            folder.mkdir(parents=True)
+            for i in range(n):
+                px = np.clip(tints[c] + rng.integers(-60, 60, (256, 320, 3)), 0, 255).astype(np.uint8)
+                Image.fromarray(px).save(folder / f"img_{i:04d}.JPEG", quality=90)
+
+
+def data_trainer(cfg, out_dir: Path, **data) -> tuple[list, list]:
+    """Trainer.train() on ``cfg`` with ``data`` settings → (its logged
+    lines, its eval lines); checks the finished sentinel."""
+    from nvit_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, out_dir=str(out_dir), **data)),
+                      device="cuda")
+    trainer.train()
+    lines = [json.loads(x) for x in (out_dir / "metrics.jsonl").read_text().splitlines()]
+    iters = cfg.training.max_iters
+    check((out_dir / "finished").read_text() == f"max_iters:{iters}", "no finished sentinel")
+    del trainer
+    torch.cuda.empty_cache()
+    return [x for x in lines if "train/batch_loss" in x], [x for x in lines if "val/loss" in x]
+
+
+def data_phase(smi: str) -> dict:
+    """Phase 11: the data path.  (a) ``python -m nvit_tpu_torch`` with
+    profiles/nvit1_k0.env and nvit0_k0.env on the packaged settings.yaml
+    (batch 512, 32 px, AutoAugment, remat, num_workers 4, prefetch 2) from
+    CIFAR-100 python-format files, 60 iterations; nvit1_k1.env refused
+    naming Kohonen.  (b) path A at full width under remat against no remat
+    (loss and gradients, step ms, peak memory, launches), AutoAugment's ms,
+    its determinism, and Trainer.train() through make_epoch_iterator and
+    device_prefetch with AutoAugment and remat.  (c) path A from a JPEG
+    folder through iterate_folder → path A's launches under remat."""
+    import shutil
+    import tempfile
+
+    from nvit_tpu_torch.data import native
+    from nvit_tpu_torch.data.autoaugment import auto_augment_batch, step_generator
+    from nvit_tpu_torch.data.datasets import load_imagenet, make_synthetic
+    from nvit_tpu_torch.models.presets import flagship_config
+    from nvit_tpu_torch.scripts.step_time import step_ms, sync_step
+    from nvit_tpu_torch.train.state import create_train_state
+    from nvit_tpu_torch.train.step import make_loss_fn, make_train_step
+
+    phase("data: CIFAR-100 files through the CLI's profiles, path A under remat and AutoAugment, "
+          "an ImageNet folder")
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_data_"))
+    route = native.route()
+    print(f"host loader route: {route} (native = the g++ build of native/nvit_loader.cpp; python = "
+          f"numpy gather and PIL decode, where it cannot build)")
+    try:
+        # (a) the profiles as users run them
+        t0 = time.perf_counter()
+        write_cifar100(root / "data", seed=5)
+        print(f"wrote cifar-100-python ({CIFAR_TRAIN} + {CIFAR_TEST} images) in {time.perf_counter() - t0:.1f} s")
+        profiles = {}
+        for name in ("nvit1_k0", "nvit0_k0"):
+            out = root / f"out_{name}"
+            cfg, env = profile_config(name, NVIT_DATA__DATA_DIR=str(root / "data"), NVIT_DATA__OUT_DIR=str(out),
+                                      **PROFILE_OVERRIDES)
+            profiles[name] = profile_step(name, cfg, smi)
+            print(f"python -m nvit_tpu_torch, profiles/{name}.env, overrides: " +
+                  " ".join(f"{k}={v}" for k, v in env.items() if not k.startswith("NVIT_WANDB")))
+            t0 = time.perf_counter()
+            lines = Cli(["nvit_tpu_torch"], env, root, f"python -m nvit_tpu_torch ({name})").run(timeout=600)
+            seconds = time.perf_counter() - t0
+            metrics = [json.loads(x) for x in (out / "metrics.jsonl").read_text().splitlines()]
+            logs = [x for x in metrics if "train/batch_loss" in x]
+            evals = [x for x in metrics if "val/loss" in x]
+            loaded = [x for x in lines if "native loader" in x or "datasets:" in x]
+            for x in loaded:
+                print(f"  {x.split(' - ')[-1]}")
+            for x in logs:
+                print(f"  iter {x['train/iter']}: loss {x['train/batch_loss']:.4f}, "
+                      f"{x['train/batch_time_ms']:.1f} ms ({512e3 / x['train/batch_time_ms']:.0f} img/s), "
+                      f"data wait {x['train/data_wait_ms']:.2f} ms [{smi}]")
+            for x in evals:
+                print(f"  eval at {x['_step']}: val/loss {x['val/loss']:.4f}, top-1 {x['val/top1_accuracy']:.2f}")
+            finished = (out / "finished").read_text()
+            print(f"  {name}: exit 0 in {seconds:.1f} s (process included); finished: {finished}")
+            check([x["train/iter"] for x in logs] == list(range(10, 61, 10)), f"{name}: unexpected logged steps")
+            check(all(math.isfinite(x["train/batch_loss"]) for x in logs), f"{name}: non-finite loss")
+            check(logs[-1]["train/batch_loss"] < logs[0]["train/batch_loss"], f"{name}: the loss did not fall")
+            check(finished == "max_iters:60", f"{name}: finished reads {finished!r}")
+        _, env = profile_config("nvit1_k1", NVIT_DATA__DATA_DIR=str(root / "data"),
+                                NVIT_DATA__OUT_DIR=str(root / "out_nvit1_k1"))
+        refused = Cli(["nvit_tpu_torch"], env, root, "python -m nvit_tpu_torch (nvit1_k1)")
+        rc = refused.finish(timeout=300)
+        said = [x for x in refused.lines if "NotImplementedError" in x]
+        print(f"  nvit1_k1: exit {rc}; {said[-1] if said else 'no NotImplementedError'}")
+        check(rc != 0 and said and "Kohonen" in said[-1], "nvit1_k1 was not refused naming Kohonen")
+
+        # (b) path A at full width under remat
+        cfg = flagship_config(bias=True)
+        check(cfg.training.batch_size == 32 and cfg.model.image_size == 224, "path A's config drifted")
+        sys_remat = dataclasses.replace(cfg.system, remat=True)
+        remat_cfg = dataclasses.replace(cfg, system=sys_remat)
+        skip_cfg = dataclasses.replace(cfg, system=dataclasses.replace(sys_remat, remat_skip_blocks=REMAT_SKIP))
+        _, images, labels = batch32(cfg.model)
+        state = create_train_state(cfg, seed=0, device="cuda")
+        randomize_biases(state.model, seed=1)
+        grads, losses = {}, {}
+        for name, c in (("no remat", cfg), ("remat", remat_cfg)):
+            loss, _ = make_loss_fn(c)(state.model, images, labels)
+            loss.backward()
+            losses[name] = loss.detach()
+            grads[name] = {n: p.grad for n, p in state.model.named_parameters() if p.grad is not None}
+            state.model.zero_grad(set_to_none=True)
+        same = torch.equal(losses["remat"], losses["no remat"]) and set(grads["remat"]) == set(grads["no remat"]) \
+            and all(torch.equal(grads["remat"][n], g) for n, g in grads["no remat"].items())
+        print(f"path A, remat against no remat, same weights and batch: loss {losses['remat'].item():.6f} / "
+              f"{losses['no remat'].item():.6f}; loss and all {len(grads['remat'])} gradients bit-equal: {same}")
+        check(same, "remat changed the loss or a gradient")
+        del grads
+        n_pass = 1 + cfg.model.n_layer
+        counted = {}
+        for name, c, rematted in (("remat", remat_cfg, n_pass), (f"remat_skip_blocks={REMAT_SKIP}", skip_cfg,
+                                                               n_pass - REMAT_SKIP), ("no remat", cfg, 0)):
+            step = make_train_step(c, log_norms=False)
+            sync_step(step, state, images, labels)  # warm
+            reset_counts()
+            sync_step(step, state, images, labels)
+            counted[name] = {k: v for k, v in read_counts().items() if v}
+            print(f"launches in one path A step, {name}: {counted[name]}")
+            want = remat_launches("nvit-bias", rematted, n_pass)
+            check_launches(read_counts(), want, f"one path A step, {name}")
+        steps = {"no remat": make_train_step(cfg, log_norms=False), "remat": make_train_step(remat_cfg, log_norms=False)}
+        peak, got = {}, {"no remat": [], "remat": []}
+        for name, fn in steps.items():
+            torch.cuda.reset_peak_memory_stats()
+            sync_step(fn, state, images, labels)
+            peak[name] = torch.cuda.max_memory_allocated() / 2**30
+        for name in ("no remat", "remat", "remat", "no remat"):
+            got[name].append(step_ms(steps[name], state, images, labels, 3))
+        for name in ("no remat", "remat"):
+            print(f"path A train step, {name}: {statistics.mean(got[name]):.3f} ms (runs "
+                  f"{', '.join(f'{x:.3f}' for x in got[name])}), peak memory {peak[name]:.3f} GiB [{smi}]")
+        check(peak["remat"] < peak["no remat"], "remat did not lower the step's peak memory")
+        del steps, state
+        torch.cuda.empty_cache()
+
+        # AutoAugment on the card: ms per batch, determinism
+        aug = {}
+        rng_key = np.array([0, 42], np.uint32)
+        for dataset, shape in (("imagenet", (32, 3, 224, 224)), ("cifar100", (512, 3, 32, 32))):
+            u8 = torch.from_numpy(make_synthetic(num_examples=shape[0], image_size=shape[-1], num_classes=10,
+                                                 seed=3).images).cuda()
+            a = auto_augment_batch(u8, step_generator(rng_key, 7), dataset=dataset)
+            b = auto_augment_batch(u8, step_generator(rng_key, 7), dataset=dataset)
+            c = auto_augment_batch(u8, step_generator(rng_key, 8), dataset=dataset)
+            step_no = iter(range(10**6))
+            ms = cuda_ms(lambda: auto_augment_batch(u8, step_generator(rng_key, next(step_no)), dataset=dataset),
+                         iters=20)
+            host = host_ms(lambda: (auto_augment_batch(u8, step_generator(rng_key, next(step_no)),
+                                                       dataset=dataset), torch.cuda.synchronize()), 20)
+            changed = (a != u8).flatten(1).any(1).float().mean().item()
+            aug[dataset] = ms
+            print(f"AutoAugment {dataset} policy at {list(shape)}: {ms:.3f} ms per batch (CUDA events, median "
+                  f"of 20), {host:.3f} ms host clock with a sync; same (rng, step) bit-equal: {torch.equal(a, b)}; "
+                  f"another step differs: {not torch.equal(a, c)}; images changed {changed:.2f} [{smi}]")
+            check(torch.equal(a, b) and not torch.equal(a, c), f"AutoAugment ({dataset}) is not keyed by the step")
+            check(a.dtype == torch.uint8 and a.shape == u8.shape, "AutoAugment changed the batch's shape or dtype")
+
+        # Trainer.train() with remat and AutoAugment through the prefetch
+        tcfg = dataclasses.replace(
+            remat_cfg,
+            training=dataclasses.replace(cfg.training, max_iters=DATA_TRAINER_ITERS, eval_interval=100,
+                                         log_interval=1, eval_iters=1, always_save_checkpoint=False),
+            system=dataclasses.replace(sys_remat, quick_validation_size=32))
+        torch.cuda.reset_peak_memory_stats()  # the logged peak is this Trainer's own
+        reset_counts()
+        t0 = time.perf_counter()
+        logs, evals = data_trainer(tcfg, root / "trainer_remat", dataset="synthetic")
+        seconds = time.perf_counter() - t0
+        trainer_counts = read_counts()
+        for x in logs:
+            print(f"  iter {x['train/iter']}: loss {x['train/batch_loss']:.4f}, {x['train/batch_time_ms']:.1f} ms, "
+                  f"data wait {x['train/data_wait_ms']:.3f} ms, max mem "
+                  f"{x.get('system/device_0/max_mem_allocated_gb')} GiB [{smi}]")
+        waits = [x["train/data_wait_ms"] for x in logs[1:]]
+        print(f"Trainer.train(), path A, remat and AutoAugment, synthetic 224 px: {DATA_TRAINER_ITERS} iterations "
+              f"in {seconds:.1f} s; the loop's wait for a prefetched batch after the first: median "
+              f"{statistics.median(waits):.3f} ms, max {max(waits):.3f} ms [{smi}]; launches {trainer_counts}")
+        trainer_peak = max(x["system/device_0/max_mem_allocated_gb"] for x in logs)
+        print(f"the remat Trainer's peak device memory {trainer_peak:.3f} GiB against the step's "
+              f"{peak['remat']:.3f} under remat and {peak['no remat']:.3f} without [{smi}]")
+        check(len(logs) == DATA_TRAINER_ITERS and all(math.isfinite(x["train/batch_loss"]) for x in logs),
+              "the remat Trainer logged no finite losses")
+        check(trainer_peak < peak["no remat"], "the remat Trainer peaked as high as a step without remat")
+        check(trainer_counts["qknorm_attn_bwd"] == DATA_TRAINER_ITERS * n_pass
+              and trainer_counts["gated_mlp_bwd_bias"] == DATA_TRAINER_ITERS * n_pass,
+              "the remat Trainer's backward launches are off")
+
+        # (c) the ImageNet folder path
+        write_jpeg_folder(root / "data", classes=4, per_class={"train": 40, "val": 8}, seed=6)
+        ds = load_imagenet(root / "data", split="train", image_size=224)
+        idx = np.arange(32)
+        decode_ms = host_ms(lambda: ds.decode_batch(idx), 3)
+        print(f"ImageNet folder ({len(ds)} JPEGs, 320x256, 4 classes): decode of a batch of 32 at 224 px "
+              f"{decode_ms:.1f} ms (host clock, median of 3), decoder route {route}")
+        fcfg = dataclasses.replace(tcfg, model=dataclasses.replace(cfg.model, num_classes=4),
+                                   training=dataclasses.replace(tcfg.training, max_iters=FOLDER_ITERS))
+        reset_counts()
+        t0 = time.perf_counter()
+        logs, evals = data_trainer(fcfg, root / "trainer_folder", dataset="imagenet",
+                                   data_dir=str(root / "data"), num_workers=4, prefetch=2)
+        seconds = time.perf_counter() - t0
+        folder_counts = read_counts()
+        for x in logs:
+            print(f"  iter {x['train/iter']}: loss {x['train/batch_loss']:.4f}, {x['train/batch_time_ms']:.1f} ms, "
+                  f"data wait {x['train/data_wait_ms']:.3f} ms [{smi}]")
+        print(f"Trainer.train() from the folder: {FOLDER_ITERS} iterations in {seconds:.1f} s; val/loss at 0 "
+              f"{evals[0]['val/loss']:.4f}; launches {folder_counts}")
+        check(len(logs) == FOLDER_ITERS and all(math.isfinite(x["train/batch_loss"]) for x in logs),
+              "the folder Trainer logged no finite losses")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"remat": counted, "aug_ms": aug, "profiles": profiles}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device — this smoke test runs only on the card", file=sys.stderr)
@@ -1818,6 +2174,7 @@ def main() -> int:
     from nvit_tpu_torch.models.presets import flagship_config, preset
     from nvit_tpu_torch.models.vit import ViT
 
+    t_start = time.perf_counter()
     smi = device_phase()
     build_phase()
     errs = kernel_phase()
@@ -1883,12 +2240,17 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     lifecycle_phase(smi)
+    profiles = data_phase(smi)["profiles"]
 
+    # launches: the flagship paths' (above); profile_launches: one step of
+    # each profile's config (batch 512, 32 px, remat), counted from 0
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
-         "launches": launches[name], "max_abs_err": errs[name], **times[name]}
+         "launches": launches[name], "max_abs_err": errs[name], **times[name],
+         "profile_launches": {p: got[name] for p, got in profiles.items()}}
         for name, (src, tpu) in KERNELS.items()
     ]}
+    print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s of wall time")
     print(smi)  # the card and its power limit, as nvidia-smi gives them
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

@@ -13,6 +13,11 @@ Slices ported so far, for a non-Kohonen nViT and the baseline ViT
   ``models.vit.ViT``;
 * training — ``train.trainer.Trainer`` → ``train.step.make_train_step`` →
   the forward, loss and backward → ``train.optim``'s fused AdamW + renorm;
+* the data path — CIFAR-10/100 files, ImageNet folders, digits and
+  synthetic arrays (``data/datasets.py``), their batches on a thread
+  (``data/pipeline.py``, the host loader ``data/native.py``), uploaded
+  ahead on a side stream (``device_prefetch``), AutoAugment on the device
+  (``data/autoaugment.py``), and remat (``models/vit.py``);
 * the run's lifecycle — checkpoints in the JAX package's format
   (``ckpt/checkpoint.py``, ``ckpt/tree.py``), resume and ``eval_only``, the
   params-only export (``ckpt/export.py``), ``Predictor.from_checkpoint`` /
@@ -37,9 +42,8 @@ of it against the integrated backward.
 
 Each kernel wrapper runs its plain PyTorch twin on CPU tensors and launches
 the CUDA kernel (or raises) on CUDA tensors.  The entry points run on the
-card unless the caller asks for the CPU.  Datasets other than synthetic,
-AutoAugment, remat and Kohonen, among others, come in later slices
-(ROADMAP.md §1).
+card unless the caller asks for the CPU.  Kohonen, bf16 moments, wandb
+and several cards, among others, come in later slices (ROADMAP.md §1).
 """
 
 __version__ = "0.2.0"

@@ -1,1 +1,1 @@
-"""Data: serving-side preprocessing."""
+"""Data: the dataset readers, the input pipeline, AutoAugment and the device preprocessing."""

@@ -1,9 +1,11 @@
-"""On-device preprocessing (≙ nvit_tpu/data/augment.py:19-44): normalize,
-and the training-time AutoAugment dispatch, which is not ported yet."""
+"""On-device preprocessing (≙ nvit_tpu/data/augment.py): AutoAugment on
+the uint8 batch for training, then the normalization to [-1, 1]."""
 
 from __future__ import annotations
 
 import torch
+
+from nvit_tpu_torch.data.autoaugment import auto_augment_batch
 
 
 def normalize(images_u8: torch.Tensor) -> torch.Tensor:
@@ -11,12 +13,17 @@ def normalize(images_u8: torch.Tensor) -> torch.Tensor:
     return images_u8.to(torch.float32) * (2.0 / 255.0) - 1.0
 
 
-def preprocess(images_u8: torch.Tensor, *, train: bool = False, auto_augment: bool = True) -> torch.Tensor:
-    """AutoAugment (train only, on uint8) → normalize.  AutoAugment raises:
-    it is not in this slice (ROADMAP.md, 'AutoAugment')."""
-    if train and auto_augment:
-        raise NotImplementedError(
-            "AutoAugment is not ported yet (ROADMAP.md, 'AutoAugment'); "
-            "set data.augmentation.auto_augment=false"
-        )
+def preprocess(
+    images_u8: torch.Tensor,
+    generator: torch.Generator | None = None,
+    *,
+    train: bool = False,
+    dataset: str = "cifar10",
+    auto_augment: bool = True,
+) -> torch.Tensor:
+    """AutoAugment (train only, on uint8, with the dataset's policy, drawn
+    from ``generator``) → normalize.  Without a generator nothing is
+    augmented, as the JAX package's ``preprocess`` without a key."""
+    if train and auto_augment and generator is not None:
+        images_u8 = auto_augment_batch(images_u8, generator, dataset=dataset)
     return normalize(images_u8)

@@ -13,6 +13,15 @@ head (no compute dtype) → the ``sz`` scale (nViT only; baseline has no
 ``forward_train`` also returns the aux losses (the reconstruction term,
 reported but not weighted into the loss without Kohonen); ``total_loss``,
 ``num_params`` and ``estimate_flops_per_iter`` follow vit.py.
+
+Under ``remat`` (``system.remat``) the cross-attention and every block but
+the last ``remat_skip`` are recomputed in the backward (≙ vit.py:138-141,
+:197-207, ``jax.checkpoint`` with ``dots_with_no_batch_dims_saveable``):
+``torch.utils.checkpoint`` with a selective policy that saves the outputs
+of the unbatched products (``aten.mm``, ``aten.addmm``: the projections)
+and recomputes the rest.  The attention and gated-MLP kernels are no such
+product, on either side: their forwards run again in the recompute, as
+the JAX package's ``pallas_call``s do.
 """
 
 from __future__ import annotations
@@ -21,6 +30,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from nvit_tpu_torch.configs import ViTConfig
 from nvit_tpu_torch.core.layers import linear
@@ -34,6 +44,22 @@ from nvit_tpu_torch.models.patch import (
     reflect_pad,
     space_to_depth,
 )
+
+
+# the products whose outputs remat saves: the unbatched ones (≙ JAX's
+# dots_with_no_batch_dims_saveable); batched products (bmm) are recomputed
+_SAVED_UNDER_REMAT = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_saveable(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return CheckpointPolicy.MUST_SAVE if op in _SAVED_UNDER_REMAT else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def rematerialized(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` whose activations, but for the saved
+    products, are recomputed in the backward."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=lambda: create_selective_checkpoint_contexts(_dots_saveable), **kwargs)
 
 
 def check_supported(cfg: ViTConfig) -> None:
@@ -117,13 +143,24 @@ class ViT(nn.Module):
         global_ = global_ + self.global_pos_embed.to(global_.dtype)
         return local, global_
 
-    def _trunk(self, img: torch.Tensor, compute_dtype: torch.dtype | None) -> torch.Tensor:
+    def _trunk(self, img: torch.Tensor, compute_dtype: torch.dtype | None, remat: bool = False,
+               remat_skip: int = 0) -> torch.Tensor:
         """Embeddings → shared cross-attention → blocks with the outer
-        ``norm_skip`` → patches [B, T, d]."""
+        ``norm_skip`` → patches [B, T, d]; under ``remat`` the
+        cross-attention and all blocks but the last ``remat_skip`` are
+        recomputed in the backward."""
         local, global_ = self.embed_patches(img, compute_dtype=compute_dtype)
-        patches = self.cross_attention(local, global_, compute_dtype=compute_dtype)
-        for blk in self.transformer["h"]:
-            patches = norm_skip(blk(patches, compute_dtype=compute_dtype), patches, blk.skip_param)
+        if remat:
+            patches = rematerialized(self.cross_attention, local, global_, compute_dtype=compute_dtype)
+        else:
+            patches = self.cross_attention(local, global_, compute_dtype=compute_dtype)
+        blocks = self.transformer["h"]
+        for i, blk in enumerate(blocks):
+            if remat and i < len(blocks) - remat_skip:
+                out = rematerialized(blk, patches, compute_dtype=compute_dtype)
+            else:
+                out = blk(patches, compute_dtype=compute_dtype)
+            patches = norm_skip(out, patches, blk.skip_param)
         return patches
 
     def _head(self, patches: torch.Tensor) -> torch.Tensor:
@@ -142,12 +179,14 @@ class ViT(nn.Module):
         return self._head(self._trunk(img, compute_dtype))
 
     def forward_train(
-        self, img: torch.Tensor, *, compute_dtype: torch.dtype | None = None
+        self, img: torch.Tensor, *, compute_dtype: torch.dtype | None = None, remat: bool = False,
+        remat_skip: int = 0,
     ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
         """→ (logits, aux losses) (≙ vit_apply with train=True, non-Kohonen):
         aux holds ``reconstruction``, the mse of tanh(reconstruction_head
-        (patches)) against the raw pixel patches (vit.py:215-217)."""
-        patches = self._trunk(img, compute_dtype)
+        (patches)) against the raw pixel patches (vit.py:215-217).
+        ``remat`` / ``remat_skip``: see the module docstring."""
+        patches = self._trunk(img, compute_dtype, remat, remat_skip)
         rec = self.reconstruction_head[0]
         reconstructed = torch.tanh(linear(patches, rec.weight, rec.bias, compute_dtype=compute_dtype))
         target = space_to_depth(img, self.cfg.local_patch_size)

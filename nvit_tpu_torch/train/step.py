@@ -37,7 +37,8 @@ def make_loss_fn(cfg: Config):
     dt = compute_dtype_of(cfg)
 
     def loss_fn(model, images: torch.Tensor, labels: torch.Tensor):
-        logits, aux = model.forward_train(images, compute_dtype=dt)
+        logits, aux = model.forward_train(images, compute_dtype=dt, remat=cfg.system.remat,
+                                          remat_skip=cfg.system.remat_skip_blocks)
         return total_loss(cfg.model, cfg.training.consistency_weight,
                           cfg.training.smoothness_weight, logits, labels, aux)
 
@@ -51,12 +52,9 @@ def make_train_step(
 
     ``images``: [B, C, H, W] fp32 (normalized); ``labels``: [B] int.  With
     gradient_accumulation_steps = k, B must divide by k.  ``log_norms``
-    overrides ``cfg.system.log_gpu_stats`` for the grad/param norm metrics."""
-    if cfg.system.remat:
-        raise NotImplementedError(
-            "system.remat=True: activation recompute is not ported yet (ROADMAP.md, 'remat'); "
-            "set system.remat=false"
-        )
+    overrides ``cfg.system.log_gpu_stats`` for the grad/param norm metrics.
+    ``system.remat`` recomputes the blocks' activations in the backward
+    (``models/vit.py``)."""
     accum = max(1, cfg.training.gradient_accumulation_steps)
     want_norms = cfg.system.log_gpu_stats if log_norms is None else log_norms
     loss_fn = make_loss_fn(cfg)

@@ -3,10 +3,16 @@
 / ``validate`` / ``validate_only`` / ``evaluate`` :668-806, the checkpoint
 protocol :808-926, the signal handlers and ``cleanup`` :929-1013, ``main``).
 
-Ported: evaluation at ``eval_interval`` over ``eval_iters`` batches of both
+Ported: the datasets of ``data.dataset`` (CIFAR-10/100 files, fetched
+under ``data.download``; ImageNet folders; digits; synthetic), their epoch
+batches uploaded by ``device_prefetch`` (``data.num_workers`` decode
+threads for folders, ``data.prefetch`` batches in flight), AutoAugment on
+the device keyed by the run key and the step, ``system.remat``;
+evaluation at ``eval_interval`` over ``eval_iters`` batches of both
 splits plus the (quick) validation pass, early stopping, a log every
 ``log_interval`` iterations to ``out_dir/metrics.jsonl`` (loss terms,
-learning rate, ``train/batch_time_ms``, ``train/mfu``, norms, memory), the
+learning rate, ``train/batch_time_ms``, ``train/data_wait_ms`` — the time a
+step waited for its batch —, ``train/mfu``, norms, memory), the
 ``out_dir/stat`` line at every eval, the launch limits and the relaunch
 protocol:
 
@@ -32,10 +38,10 @@ protocol:
 
 Not ported yet, and refused at construction with ``NotImplementedError``
 naming the ROADMAP.md item, never skipped silently: wandb (and
-``init_from="wandb"``); AutoAugment and datasets other than ``synthetic``;
-``remat`` and bf16 moments; more than one device; gradient histograms,
-profiling and the NaN sanitizer; Kohonen (``ViT`` raises); orbax
-checkpoints (on ROADMAP.md's do-not-port list).  ``jit``, ``compile``,
+``init_from="wandb"``); bf16 moments; more than one device; gradient
+histograms, profiling and the NaN sanitizer; Kohonen (``models.vit.check_supported``);
+orbax checkpoints (on ROADMAP.md's do-not-port list).  One process loads
+the data, so ``data.download`` needs no master gating.  ``jit``, ``compile``,
 ``compilation_cache_dir``, ``clear_cache`` and ``backend`` are TPU/XLA
 settings with no PyTorch counterpart and are ignored, and so is
 ``system.use_tqdm``: the JAX trainer's progress bar changes no result.
@@ -60,11 +66,12 @@ import torch
 from nvit_tpu_torch.ckpt.checkpoint import restore_for_resume, save_checkpoint_async
 from nvit_tpu_torch.configs import Config, load_config
 from nvit_tpu_torch.data.augment import preprocess
+from nvit_tpu_torch.data.autoaugment import step_generator
 from nvit_tpu_torch.data.datasets import load_dataset
-from nvit_tpu_torch.data.pipeline import iterate_array, to_device
+from nvit_tpu_torch.data.pipeline import device_prefetch, make_epoch_iterator
 from nvit_tpu_torch.models.blocks import SQK_INIT_VALUE
 from nvit_tpu_torch.models.schedules import cosine_lr
-from nvit_tpu_torch.models.vit import estimate_flops_per_iter, num_params
+from nvit_tpu_torch.models.vit import check_supported, estimate_flops_per_iter, num_params
 from nvit_tpu_torch.obs.metrics import (
     MetricsWriter,
     StepTimer,
@@ -105,14 +112,10 @@ def check_ported(cfg: Config, device: torch.device) -> None:
             "ROADMAP.md's do-not-port list; use 'npz', the JAX package's default")
     if d.checkpoint_backend != "npz":
         raise ValueError(f"checkpoint_backend must be 'npz' or 'orbax', got {d.checkpoint_backend!r}")
+    check_supported(cfg.model)  # Kohonen, before anything is made on the device
     unported = [
         (t.init_from == "wandb", "training.init_from='wandb'", "wandb"),
         (cfg.wandb.mode != "disabled", f"wandb.mode={cfg.wandb.mode!r}", "wandb"),
-        (d.augmentation.enabled and d.augmentation.auto_augment,
-         "data.augmentation.auto_augment", "AutoAugment"),
-        (d.dataset.lower() != "synthetic", f"data.dataset={d.dataset!r}",
-         "datasets and the data pipeline"),
-        (s.remat, "system.remat", "remat"),
         (cfg.optimizer.moments_dtype != "float32",
          f"optimizer.moments_dtype={cfg.optimizer.moments_dtype!r}", "bf16 moments"),
         (multi_gpu, "more than one device (system.use_ddp with several cards, model_parallel)",
@@ -150,6 +153,7 @@ class Trainer:
         self.early_stopping_counter = 0
         self._eval_count = 0
         self._sqk_drift_warned = False  # the drift warning is logged once per Trainer
+        self._data_wait = 0.0  # seconds the loop waited for batches since the last log
         self.last_metrics: dict[str, float] = {}
         self.metrics_writer: MetricsWriter | None = None
 
@@ -205,8 +209,11 @@ class Trainer:
 
     # ------------------------------------------------------------------ data
     def _load_data(self) -> None:
+        """Both splits of ``data.dataset`` (≙ trainer.py:_load_data; one
+        process, so ``data.download`` is taken as it is)."""
         cfg = self.cfg
-        kw = dict(image_size=cfg.model.image_size, num_classes=cfg.model.num_classes)
+        kw = dict(image_size=cfg.model.image_size, num_classes=cfg.model.num_classes,
+                  download=cfg.data.download)
         t0 = time.perf_counter()
         self.trainset = load_dataset(cfg.data.dataset, cfg.data.data_dir, train=True, **kw)
         self.valset = load_dataset(cfg.data.dataset, cfg.data.data_dir, train=False, **kw)
@@ -216,14 +223,35 @@ class Trainer:
         self.steps_per_epoch = max(1, len(self.trainset) // cfg.training.batch_size)
 
     def _epoch_iter(self, ds, *, epoch: int, shuffle: bool, drop_last: bool = True, start_batch: int = 0):
-        for batch in iterate_array(ds, batch_size=self.cfg.training.batch_size, epoch=epoch,
-                                   seed=self.cfg.training.seed, shuffle=shuffle,
-                                   drop_last=drop_last, start_batch=start_batch):
-            yield to_device(batch, self.device)
+        """The epoch's batches on the device, ``data.prefetch`` in flight
+        (≙ trainer.py:_epoch_iter on one process)."""
+        d = self.cfg.data
+        it = make_epoch_iterator(ds, batch_size=self.cfg.training.batch_size, epoch=epoch,
+                                 seed=self.cfg.training.seed, shuffle=shuffle, drop_last=drop_last,
+                                 num_workers=d.num_workers, start_batch=start_batch)
+        return device_prefetch(it, self.device, size=d.prefetch)
 
-    def _preprocess(self, imgs_u8: torch.Tensor, *, train: bool) -> torch.Tensor:
+    def _timed(self, batches):
+        """``batches``, adding the time each one was waited for to ``_data_wait``."""
+        try:
+            while True:
+                t0 = time.perf_counter()
+                batch = next(batches, None)
+                if batch is None:
+                    return
+                self._data_wait += time.perf_counter() - t0
+                yield batch
+        finally:
+            batches.close()
+
+    def _preprocess(self, imgs_u8: torch.Tensor, *, train: bool, step: int | None = None) -> torch.Tensor:
+        """AutoAugment (train) and normalize; a train batch's draw is keyed
+        by the run key and ``step`` (default ``iter_num``), as the JAX
+        trainer keys it by ``fold_in(state.rng, step)``."""
         aug = self.cfg.data.augmentation
-        return preprocess(imgs_u8, train=train, auto_augment=aug.enabled and aug.auto_augment)
+        gen = step_generator(self.state.rng, self.iter_num if step is None else step) if train else None
+        return preprocess(imgs_u8, gen, train=train, dataset=self.cfg.data.dataset,
+                          auto_augment=aug.enabled and aug.auto_augment)
 
     def _sqk_drift_metrics(self) -> dict[str, float]:
         """Largest effective sqk and the bounded-softmax shift it implies
@@ -277,10 +305,10 @@ class Trainer:
 
             while not stop():
                 # a resumed launch skips the batches its epoch already trained on
-                for imgs_u8, labels in self._epoch_iter(
+                for imgs_u8, labels in self._timed(self._epoch_iter(
                     self.trainset, epoch=epoch, shuffle=True,
                     start_batch=max(0, self.iter_num - epoch * self.steps_per_epoch),
-                ):
+                )):
                     if stop():
                         break
                     if self.iter_num % tc.eval_interval == 0:
@@ -351,10 +379,12 @@ class Trainer:
                                              for k in keys]).tolist()))
         dt, mfu = timer.tick()
         dt /= tc.log_interval
+        wait, self._data_wait = self._data_wait / tc.log_interval, 0.0
         train_metrics = {
             "train/iter": self.iter_num,
             "train/batch_loss": values["total_loss"],
             "train/batch_time_ms": dt * 1000,
+            "train/data_wait_ms": wait * 1000,
             "train/mfu": None if mfu is None else mfu * tc.log_interval,
             "optimizer/learning_rate": values["learning_rate"],
             **{f"train/{k}": v for k, v in values.items() if k.endswith(("_loss", "_norm"))},
@@ -376,7 +406,10 @@ class Trainer:
                     ds, epoch=self.iter_num if train else 0, shuffle=train, drop_last=False)):
                 if k >= self.cfg.training.eval_iters:
                     break
-                m = self._eval_step(self.state.model, self._preprocess(imgs_u8, train=train), labels)
+                # the train split under the training distribution: each batch
+                # augmented with its own key, step + k (≙ trainer.py:684-686)
+                images = self._preprocess(imgs_u8, train=train, step=self.iter_num + k)
+                m = self._eval_step(self.state.model, images, labels)
                 losses.append(m["loss"])
             out[split] = float(np.mean(torch.stack(losses).cpu().numpy())) if losses else math.nan
         return out

@@ -140,8 +140,8 @@ def test_train_cli_runs_resumes_and_evaluates(tiny_run, monkeypatch):
 
 def test_train_cli_refuses_the_packaged_defaults_and_multihost(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="AutoAugment"):
-        train_main()  # settings.yaml trains CIFAR-100 with AutoAugment, remat and Kohonen
+    with pytest.raises(NotImplementedError, match="Kohonen"):
+        train_main()  # settings.yaml trains CIFAR-100 with AutoAugment and remat (ported), and Kohonen
     monkeypatch.setenv("NVIT_MULTIHOST", "1")
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         train_main()

@@ -1,7 +1,8 @@
 """Card-only tests: the port's CUDA kernels (K1–K10 and the projection
 prologues) against their plain twins, K2–K6 and K8–K10 bit-deterministic,
-the autograd Functions' gradients, and one flagship-width Block's backward in
-each mode, with and without a bias and the bounded softmax.
+the autograd Functions' gradients, one flagship-width Block's backward in
+each mode, with and without a bias and the bounded softmax, and
+``device_prefetch``'s side-stream upload against the host batches.
 
 Marked ``cuda`` and skipped where there is no CUDA device or no ``nvcc``.
 This file imports no jax, so it also runs on a machine with the card but
@@ -851,3 +852,30 @@ def test_checkpoint_resume_on_the_card_is_bit_equal(cuda, tmp_path):
     assert meta["iter_num"] == 4 and cfg.model == configs.ViTConfig(**model)
     assert next(state.model.parameters()).is_cuda
     assert all(np.array_equal(x, y) for x, y in zip(state_leaves(state), b))
+
+
+@pytest.mark.cuda
+def test_device_prefetch_side_stream_delivers_the_host_bytes(cuda):
+    """device_prefetch uploads on a side stream while the consumer's stream
+    is busy: each batch, read on the consumer's stream only after a ~10 ms
+    sleep queued there and freed at once, must hold the host's bytes.  A
+    missing event wait would let the read overtake the copy; a missing
+    ``record_stream`` would let the allocator hand the freed batch's memory
+    to the next upload before the delayed read ran."""
+    import numpy as np
+
+    from nvit_tpu_torch.data.pipeline import device_prefetch
+
+    rng = np.random.default_rng(0)
+    host = [(rng.integers(0, 256, (64, 3, 64, 64), dtype=np.uint8), rng.integers(0, 100, 64).astype(np.int32))
+            for _ in range(12)]
+    got = []
+    for imgs, labels in device_prefetch(iter(host), cuda, size=2):
+        assert imgs.is_cuda and imgs.dtype == torch.uint8 and labels.dtype == torch.int64
+        torch.cuda._sleep(20_000_000)  # the consumer's stream is busy before it reads the batch
+        got.append((imgs.clone(), labels.clone()))
+        del imgs, labels
+    torch.cuda.synchronize()
+    assert len(got) == len(host)
+    for (gi, gl), (hi, hl) in zip(got, host):
+        assert np.array_equal(gi.cpu().numpy(), hi) and np.array_equal(gl.cpu().numpy(), hl)

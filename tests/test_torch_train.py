@@ -13,7 +13,8 @@
   the JAX package's;
 * the trainer: a few iterations on tiny synthetic data write
   ``metrics.jsonl``; every unported setting raises at construction, and
-  the checkpoint settings, ported since, are taken.
+  the checkpoint settings, ported since, are taken; the datasets, ported
+  since, read their files or name the missing layout.
 """
 
 import dataclasses
@@ -276,7 +277,7 @@ def test_epoch_order_and_batches_are_the_jax_pipeline():
     from nvit_tpu.data.datasets import ArrayDataset as JaxArrayDataset
     from nvit_tpu.data.pipeline import iterate_array as jax_iterate
     from nvit_tpu_torch.data.datasets import ArrayDataset
-    from nvit_tpu_torch.data.pipeline import iterate_array, to_device
+    from nvit_tpu_torch.data.pipeline import device_prefetch, iterate_array
 
     rng = np.random.default_rng(22)
     imgs = rng.integers(0, 256, (37, 3, 4, 4), dtype=np.uint8)
@@ -289,17 +290,24 @@ def test_epoch_order_and_batches_are_the_jax_pipeline():
         for (gi, gl), (wi, wl) in zip(got, want):
             np.testing.assert_array_equal(gi, wi)
             np.testing.assert_array_equal(gl, wl)
-    x, y = to_device(got[0], torch.device("cpu"))
+    x, y = next(device_prefetch(iter(got[:1]), "cpu"))
     assert x.dtype == torch.uint8 and y.dtype == torch.int64
 
 
 def test_preprocess_normalizes_and_autoaugment_raises():
-    imgs = torch.from_numpy(np.random.default_rng(23).integers(0, 256, (2, 3, 4, 4), dtype=np.uint8))
+    """AutoAugment is ported (tests/test_torch_autoaugment.py): a train
+    batch with a generator is augmented, then normalized; without one, or
+    with AutoAugment off, or for eval, preprocess is the JAX normalize."""
+    from nvit_tpu_torch.data.autoaugment import auto_augment_batch, step_generator
+
+    imgs = torch.from_numpy(np.random.default_rng(23).integers(0, 256, (8, 3, 8, 8), dtype=np.uint8))
     np.testing.assert_array_equal(preprocess(imgs, train=True, auto_augment=False).numpy(),
                                   np.asarray(jax_normalize(jnp.asarray(imgs.numpy()))))
     assert torch.equal(preprocess(imgs, train=False), normalize(imgs))
-    with pytest.raises(NotImplementedError, match="AutoAugment"):
-        preprocess(imgs, train=True, auto_augment=True)
+    key = np.array([0, 1], np.uint32)
+    augmented = preprocess(imgs, step_generator(key, 3), train=True, auto_augment=True, dataset="cifar100")
+    assert torch.equal(augmented, normalize(auto_augment_batch(imgs, step_generator(key, 3), dataset="cifar100")))
+    assert not torch.equal(augmented, normalize(imgs))
 
 
 # ------------------------------------------------------------------ trainer
@@ -381,9 +389,6 @@ def test_trainer_takes_the_checkpoint_settings(tmp_path, kw):
 
 @pytest.mark.parametrize("section,kw,item", [
     ("wandb", dict(mode="offline"), "wandb"),
-    ("data", dict(augmentation=port_schema.AugmentationConfig()), "AutoAugment"),
-    ("data", dict(dataset="cifar100"), "datasets"),
-    ("system", dict(remat=True), "remat"),
     ("optimizer", dict(moments_dtype="bfloat16"), "bf16 moments"),
     ("system", dict(model_parallel=2), "multi-GPU"),
     ("system", dict(profile_steps=2), "observability"),
@@ -399,9 +404,18 @@ def test_trainer_refuses_unported_settings(tmp_path, section, kw, item):
 
 @pytest.mark.parametrize("name", ["cifar10", "cifar100", "imagenet", "digits"])
 def test_unported_datasets_raise(tmp_path, name):
+    """Every dataset is ported (tests/test_torch_data.py): without their
+    files the CIFAR and ImageNet readers raise ``FileNotFoundError`` naming
+    the layout; digits, bundled with scikit-learn, equal the JAX package's."""
+    from nvit_tpu.data.datasets import load_dataset as jax_load_dataset
     from nvit_tpu_torch.data.datasets import load_dataset
 
-    with pytest.raises(NotImplementedError, match="datasets and the data pipeline"):
+    if name == "digits":
+        got, want = load_dataset(name, tmp_path, image_size=16), jax_load_dataset(name, tmp_path, image_size=16)
+        np.testing.assert_array_equal(got.images, want.images)
+        np.testing.assert_array_equal(got.labels, want.labels)
+        return
+    with pytest.raises(FileNotFoundError, match="imagenet" if name == "imagenet" else "data.download=true"):
         load_dataset(name, tmp_path)
 
 
