@@ -92,13 +92,14 @@ then the run's lifecycle at nViT-B/16 full width:
 then the data path:
 11. data    — a CIFAR-100 python-format tree (50,000 + 10,000 class-structured
                images from a seed) and ``python -m nvit_tpu_torch`` with
-               profiles/nvit1_k0.env and nvit0_k0.env on the packaged
-               settings.yaml (batch 512, 32 px, 2 layers, d = 64, bias,
-               AutoAugment, remat, num_workers 4, prefetch 2; only the
-               directories, max_iters 60, eval_interval 30, eval_iters 2 and
-               log_interval 10 set): exit 0, the logged steps, the loss
-               falling, ``finished`` = max_iters:60; nvit1_k1.env refused
-               naming Kohonen; path A (``flagship_config(bias=True)``) under
+               profiles/nvit1_k0.env, nvit0_k0.env and nvit1_k1.env (the
+               packaged default's model: the Kohonen SOM, 2 × 16 nodes) on
+               the packaged settings.yaml (batch 512, 32 px, 2 layers,
+               d = 64, bias, AutoAugment, remat, num_workers 4, prefetch 2;
+               only the directories, max_iters 60, eval_interval 30,
+               eval_iters 2 and log_interval 10 set): exit 0, the logged
+               steps, the loss falling, ``finished`` = max_iters:60, the
+               Kohonen validation terms finite; path A (``flagship_config(bias=True)``) under
                remat against no remat on the same weights and batch: loss and
                every gradient bit-equal, step ms and peak memory, the launches
                per step (the QK-norm and gated forwards once more per
@@ -108,13 +109,30 @@ then the data path:
                Trainer.train() with remat and AutoAugment through
                make_epoch_iterator and device_prefetch (the loop's wait for a
                batch); an ImageNet-layout folder of JPEGs decoded (the loader's
-               route, ms per batch) and trained on through iterate_folder.
+               route, ms per batch) and trained on through iterate_folder;
+then this slice's path:
+12. kohonen — the Kohonen flagship, ``flagship_config(use_kohonen=True,
+               kohonen_nodes=512)`` (nViT-B/16 with two 256-node maps on a
+               16×16 torus, Hebbian "reference"): served as in phase 6 with
+               K1, K3 and the prologue 15 times a forward (12 blocks + the
+               shared cross-attention three times) and no other kernel; at
+               batch 32 the BMU indices and Hebbian deltas bit-equal on the
+               kernel and plain paths; the SOM work of one map (BMU search,
+               its backward, the Hebbian delta) by CUDA events beside its
+               bound; trained as in phase 8 — K1–K4 15 times a step and the
+               prologue 30, the loss and the gradients (both maps' nodes and
+               the reconstruction head among them) against the plain path,
+               ten steps lowering the loss, step ms, img/s, MFU, peak
+               memory, Trainer.train().
 
 K9 is not on any main path (T = 784 ≤ 1024 takes K8), nor is K10 (only the
 bench runs it), so their launch counts in the summary are 0 per training
 step; the kernels phase checks both, the bench phase runs K10 (its count
 there is the summary's ``bench_launches``) and the times phases time both.
-The line before the last is a JSON summary of the kernels; the last line is
+The line before the last is a JSON summary of the kernels (``launches``
+from the last full path that runs each, the Kohonen flagship's for K1–K4
+and the prologue; ``path_launches`` per full path; ``profile_launches`` per
+profile); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -221,6 +239,10 @@ PATHS = {
     "bounded": {"forward": ("qknorm_attn_fwd_bounded", "gated_mlp_fwd_bias", "qknorm_project"),
                 "step": ("qknorm_attn_fwd_bounded", "qknorm_attn_bwd_bounded", "gated_mlp_fwd_bias",
                          "gated_mlp_bwd_bias", "qknorm_project", "qknorm_project")},
+    # the Kohonen flagship: nViT's kernels, over 3 cross-attention passes
+    "nvit-kohonen": {"forward": ("qknorm_attn_fwd", "gated_mlp_fwd", "qknorm_project"),
+                     "step": ("qknorm_attn_fwd", "qknorm_attn_bwd", "gated_mlp_fwd", "gated_mlp_bwd",
+                              "qknorm_project", "qknorm_project")},
     # "auto"'s backward is K2's plain recompute (≙ _bwd_qknorm)
     "auto": {"forward": ("qknorm_attn_fwd_auto", "gated_mlp_fwd_bias", "qknorm_project"),
              "step": ("qknorm_attn_fwd_auto", "qknorm_attn_bwd", "gated_mlp_fwd_bias", "gated_mlp_bwd_bias",
@@ -313,6 +335,14 @@ def launch_counts() -> dict:
             "qknorm_attn_bwd_subtiled": (fa.qknorm_attention_bwd_subtiled, "launches"),
             "qknorm_project": (fa.qknorm_project_bf16, "launches"),
             "flash_project": (fa.flash_project_bf16, "launches")}
+
+
+def n_passes(m) -> int:
+    """Passes of the attention and gated-MLP kernels per forward: every
+    block, and the shared cross-attention once, or three times with the
+    Kohonen SOM (its BMU representations fused with each stream, then the
+    two results)."""
+    return m.n_layer + (3 if m.use_kohonen else 1)
 
 
 def per_pass(names, n: int) -> dict:
@@ -931,7 +961,7 @@ def serve_phase(title, path, cfg, pred, plain) -> dict:
     check(stats["requests"] == 3 and stats["images"] == 37 and stats["errors"] == 0, "bad /stats counts")
     forwards = stats["device_programs"]
     check(forwards == 3, f"expected 3 device forwards, /stats counts {forwards}")
-    per_forward = 1 + cfg.model.n_layer  # the shared cross-attention + every block
+    per_forward = n_passes(cfg.model)
     print(f"launches in the served run: {launches} over {forwards} forwards")
     check_launches(launches, per_pass(PATHS[path]["forward"], per_forward * forwards), f"serving {title}")
 
@@ -1359,7 +1389,7 @@ def step_launches(cfg, path, state, images, labels) -> dict:
     sync_step(step, state, images, labels)
     launches = read_counts()
     print(f"launches in one training step: {launches}")
-    check_launches(launches, per_pass(PATHS[path]["step"], 1 + cfg.model.n_layer), "one training step")
+    check_launches(launches, per_pass(PATHS[path]["step"], n_passes(cfg.model)), "one training step")
     return launches
 
 
@@ -1392,7 +1422,7 @@ def train_phase(smi: str, title: str, path: str, cfg, grad_groups: dict) -> dict
     plain_cfg, plain_model = plain_twin(cfg, state.model)
     compare_gradients(cfg, state.model, plain_cfg, plain_model, images, labels, grad_groups)
     launches = step_launches(cfg, path, state, images, labels)
-    per_step = 1 + m.n_layer
+    per_step = n_passes(m)
 
     # step time on both paths: plain, kernel, kernel, plain
     plain_state = TrainState(model=plain_model, opt_state=init_fused_adamw(plain_model.named_parameters()),
@@ -1528,7 +1558,7 @@ def check_phase(title: str, path: str, cfg, grad_groups: dict, *, sqk_factor: fl
     probs = pred.predict_probs(u8)
     forward = read_counts()
     print(f"launches in one batch-32 forward: {forward}")
-    check_launches(forward, per_pass(PATHS[path]["forward"], 1 + m.n_layer), f"forward, {title}")
+    check_launches(forward, per_pass(PATHS[path]["forward"], n_passes(m)), f"forward, {title}")
     check(probs.shape == (len(u8), m.num_classes) and np.isfinite(probs).all(), "bad probabilities")
     with torch.inference_mode():
         logits = state.model(images, compute_dtype=torch.bfloat16)
@@ -1703,7 +1733,7 @@ def lifecycle_phase(smi: str) -> dict:
         del resumed
         torch.cuda.empty_cache()
         print(f"launches in the resumed launch (3 steps, one eval): {launches}")
-        want = per_pass(PATHS["nvit"]["step"], 1 + base.model.n_layer)
+        want = per_pass(PATHS["nvit"]["step"], n_passes(base.model))
         check(len(per_step) == 3, f"the resumed launch took {len(per_step)} steps")
         for counts in per_step:
             check_launches(counts, want, "one resumed training step")
@@ -1827,6 +1857,8 @@ def lifecycle_phase(smi: str) -> dict:
 
 # the data phase: the profiles as users run them, path A under remat and
 # AutoAugment, the ImageNet folder path
+# the Kohonen terms the validation logs (the JAX trainer's names)
+KOHONEN_VAL = ("consistency_loss", "smoothness_loss", "local_quantization_loss", "global_quantization_loss")
 PROFILE_OVERRIDES = {"NVIT_TRAINING__MAX_ITERS": "60", "NVIT_TRAINING__EVAL_INTERVAL": "30",
                      "NVIT_TRAINING__EVAL_ITERS": "2", "NVIT_TRAINING__LOG_INTERVAL": "10"}
 CIFAR_TRAIN, CIFAR_TEST = 50_000, 10_000
@@ -1905,7 +1937,7 @@ def profile_step(name: str, cfg, smi: str) -> dict:
     sync_step(step, state, images, labels)
     launches = read_counts()
     path = "nvit-bias" if m.use_nvit else "baseline-bias"
-    n_pass = 1 + m.n_layer
+    n_pass = n_passes(m)
     launched = {k: v for k, v in launches.items() if v}
     print(f"  {name} in this process, one step at batch {tc.batch_size} ({path} kernels, remat over "
           f"{n_pass - cfg.system.remat_skip_blocks} of {n_pass} passes): launches {launched}")
@@ -1999,7 +2031,7 @@ def data_phase(smi: str) -> dict:
         write_cifar100(root / "data", seed=5)
         print(f"wrote cifar-100-python ({CIFAR_TRAIN} + {CIFAR_TEST} images) in {time.perf_counter() - t0:.1f} s")
         profiles = {}
-        for name in ("nvit1_k0", "nvit0_k0"):
+        for name in ("nvit1_k0", "nvit0_k0", "nvit1_k1"):
             out = root / f"out_{name}"
             cfg, env = profile_config(name, NVIT_DATA__DATA_DIR=str(root / "data"), NVIT_DATA__OUT_DIR=str(out),
                                       **PROFILE_OVERRIDES)
@@ -2020,20 +2052,18 @@ def data_phase(smi: str) -> dict:
                       f"{x['train/batch_time_ms']:.1f} ms ({512e3 / x['train/batch_time_ms']:.0f} img/s), "
                       f"data wait {x['train/data_wait_ms']:.2f} ms [{smi}]")
             for x in evals:
-                print(f"  eval at {x['_step']}: val/loss {x['val/loss']:.4f}, top-1 {x['val/top1_accuracy']:.2f}")
+                som = ", ".join(f"{k} {x[f'val/{k}']:.4f}" for k in KOHONEN_VAL if f"val/{k}" in x)
+                print(f"  eval at {x['_step']}: val/loss {x['val/loss']:.4f}, top-1 "
+                      f"{x['val/top1_accuracy']:.2f}{', ' + som if som else ''}")
             finished = (out / "finished").read_text()
             print(f"  {name}: exit 0 in {seconds:.1f} s (process included); finished: {finished}")
             check([x["train/iter"] for x in logs] == list(range(10, 61, 10)), f"{name}: unexpected logged steps")
             check(all(math.isfinite(x["train/batch_loss"]) for x in logs), f"{name}: non-finite loss")
             check(logs[-1]["train/batch_loss"] < logs[0]["train/batch_loss"], f"{name}: the loss did not fall")
             check(finished == "max_iters:60", f"{name}: finished reads {finished!r}")
-        _, env = profile_config("nvit1_k1", NVIT_DATA__DATA_DIR=str(root / "data"),
-                                NVIT_DATA__OUT_DIR=str(root / "out_nvit1_k1"))
-        refused = Cli(["nvit_tpu_torch"], env, root, "python -m nvit_tpu_torch (nvit1_k1)")
-        rc = refused.finish(timeout=300)
-        said = [x for x in refused.lines if "NotImplementedError" in x]
-        print(f"  nvit1_k1: exit {rc}; {said[-1] if said else 'no NotImplementedError'}")
-        check(rc != 0 and said and "Kohonen" in said[-1], "nvit1_k1 was not refused naming Kohonen")
+            check(cfg.model.use_kohonen == (name == "nvit1_k1")
+                  and all(math.isfinite(x[f"val/{k}"]) for x in evals for k in KOHONEN_VAL if cfg.model.use_kohonen),
+                  f"{name}: the Kohonen setting or its validation terms")
 
         # (b) path A at full width under remat
         cfg = flagship_config(bias=True)
@@ -2057,7 +2087,7 @@ def data_phase(smi: str) -> dict:
               f"{losses['no remat'].item():.6f}; loss and all {len(grads['remat'])} gradients bit-equal: {same}")
         check(same, "remat changed the loss or a gradient")
         del grads
-        n_pass = 1 + cfg.model.n_layer
+        n_pass = n_passes(cfg.model)
         counted = {}
         for name, c, rematted in (("remat", remat_cfg, n_pass), (f"remat_skip_blocks={REMAT_SKIP}", skip_cfg,
                                                                n_pass - REMAT_SKIP), ("no remat", cfg, 0)):
@@ -2163,6 +2193,108 @@ def data_phase(smi: str) -> dict:
     return {"remat": counted, "aug_ms": aug, "profiles": profiles}
 
 
+# the Kohonen phase: the SOM's parameters as gradient groups of their own,
+# and the reconstruction head, whose loss term only Kohonen weighs in
+KOHONEN_GROUPS = {"local_kohonen.nodes": r"local_kohonen\.nodes", "global_kohonen.nodes": r"global_kohonen\.nodes",
+                  "reconstruction head": r"reconstruction_head\..+"}
+# fp32 outside the tensor cores (NVIDIA's data sheet, H100 SXM): the SOM's
+# fp32 products' peak
+PEAK_FP32_FLOPS = 67e12
+
+
+def som_times(model, images, smi: str) -> None:
+    """Prints the CUDA-event ms of the SOM work of one batch-32 step for
+    one map (a step runs it for both): the BMU search (fp32 distances of the
+    bf16-rounded operands, argmin, gather), its backward (the one-hot
+    product into the nodes) and the Hebbian delta, each beside its bound
+    (fp32 products over the fp32 peak, or bytes)."""
+    from nvit_tpu_torch.som.kohonen import bmu, hebbian_delta, neighborhood_kernel
+
+    with torch.no_grad():
+        local, _ = model.embed_patches(images, compute_dtype=torch.bfloat16)
+    som = model.local_kohonen
+    spec, nodes = som.spec, som.nodes.detach()
+    kernel = neighborhood_kernel(spec, nodes.device)
+    lr = torch.tensor(1e-3, device="cuda")
+    s, n, d = local.shape[0] * local.shape[1], spec.num_nodes, local.shape[-1]
+    with torch.no_grad():
+        _, idx = bmu(nodes, local)
+    leaf = nodes.clone().requires_grad_()
+    rep, _ = bmu(leaf, local)
+    cot = torch.randn_like(rep)
+    product = 2.0 * s * n * d  # one [S, N] × [N or S, d] product
+    work = {  # name → (fn, fp32 products' operations, bytes in and out once)
+        "bmu": (lambda: bmu(nodes, local), product, 2 * s * d + 4 * n * d + 8 * s + 2 * s * d),
+        "bmu_backward": (lambda: torch.autograd.grad(rep, leaf, cot, retain_graph=True), product,
+                         2 * s * d + 8 * s + 4 * n * d),
+        "hebbian_delta": (lambda: hebbian_delta(nodes, kernel, local, idx, lr, spec.alpha),
+                          product + 2.0 * n * n * d, 2 * s * d + 8 * s + 4 * n * n + 8 * n * d),
+    }
+    total = 0.0
+    for name, (fn, flops, nbytes) in work.items():
+        ms = cuda_ms(fn)
+        total += 2 * ms
+        t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+        print(f"SOM {name}, one map at [S={s}, N={n}, d={d}]: {ms:.4f} ms (CUDA events, median of 20), "
+              f"bound {max(t_ops, t_bytes) * 1e3:.4f} ms ({'operations' if t_ops >= t_bytes else 'bytes'}, "
+              f"fp32 peak {PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s) [{smi}]")
+    print(f"SOM work of one step, both maps: {total:.3f} ms")
+
+
+def kohonen_phase(smi: str) -> dict:
+    """Phase 12: the Kohonen flagship, ``flagship_config(use_kohonen=True,
+    kohonen_nodes=512)`` — nViT-B/16 with two 256-node maps on a 16×16
+    torus, Hebbian "reference" — served over HTTP (K1, K3 and the prologue
+    15 times a forward), its BMU indices and Hebbian deltas bit-equal on
+    the kernel and plain paths, its SOM work timed, then trained like the
+    other full paths (train_phase: K1–K4 15 times a step, the prologue 30,
+    the nodes' gradients against the plain path among the groups) →
+    {"served": launches, "stepped": launches}."""
+    import gc
+
+    from nvit_tpu_torch.infer import Predictor
+    from nvit_tpu_torch.models.presets import flagship_config
+    from nvit_tpu_torch.models.vit import ViT, kohonen_spec
+
+    cfg = flagship_config(use_kohonen=True, kohonen_nodes=512)
+    m = cfg.model
+    spec = kohonen_spec(m)
+    check(m.n_embd == 768 and m.n_layer == 12 and not m.bias and m.bounded_softmax == "rowmax"
+          and m.kohonen_hebbian == "reference" and (spec.m, spec.n) == (16, 16) and n_passes(m) == 15,
+          "the Kohonen flagship's config drifted")
+    title = "nViT-B/16 with its 512-node Kohonen SOM"
+    pred = Predictor.from_config(cfg, seed=0, device="cuda")
+    plain_cfg = dataclasses.replace(m, flash_attn=False, gated_mlp_kernel="off")
+    plain_model = ViT(plain_cfg, device="cuda")
+    plain_model.load_state_dict(pred.model.state_dict(), strict=True)
+    plain = Predictor(plain_model, plain_cfg, device="cuda")
+    served = serve_phase(title, "nvit-kohonen", cfg, pred, plain)
+
+    # both paths read the same embeddings: the same BMUs and deltas, bit for bit
+    _, images, _ = batch32(m)
+    with torch.no_grad():
+        _, aux_k, som_k = pred.model.forward_train(images, step=1500, compute_dtype=torch.bfloat16)
+        _, aux_p, som_p = plain.model.forward_train(images, step=1500, compute_dtype=torch.bfloat16)
+    keys = {"local_indices", "global_indices", "local_delta", "global_delta"}
+    same = set(som_k) == set(som_p) == keys and all(torch.equal(som_k[k], som_p[k]) for k in keys)
+    used = {k: int(torch.unique(som_k[k]).numel()) for k in ("local_indices", "global_indices")}
+    print(f"batch 32, step 1500: BMU indices and Hebbian deltas bit-equal on the kernel and plain paths: "
+          f"{same}; nodes in use {used} of {spec.num_nodes}; max|delta| "
+          f"{som_k['local_delta'].abs().max().item():.3e} / {som_k['global_delta'].abs().max().item():.3e}")
+    print("aux terms, kernel / plain path: " + ", ".join(
+        f"{k} {aux_k[k].item():.5f} / {aux_p[k].item():.5f}" for k in sorted(aux_k)))
+    check(same, "the kernel and plain paths disagree on the BMUs or the Hebbian deltas")
+    check(all(math.isfinite(v.item()) for v in (*aux_k.values(), *aux_p.values())), "non-finite aux term")
+    som_times(pred.model, images, smi)
+    del pred, plain, plain_model, som_k, som_p
+    gc.collect()
+    torch.cuda.empty_cache()
+    stepped = train_phase(smi, title, "nvit-kohonen", cfg, {**GRAD_GROUPS, **KOHONEN_GROUPS})
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"served": served, "stepped": stepped}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device — this smoke test runs only on the card", file=sys.stderr)
@@ -2194,7 +2326,7 @@ def main() -> int:
         ("baseline", "baseline ViT-B/16", base_cfg, base_cfg, baseline_time_phase, BASELINE_GRAD_GROUPS),
         ("nvit-bias", "nViT-B/16, bias=True (path A)", path_a, path_a, bias_bounded_time_phase, bias_groups),
     )
-    times, launches = {}, {}
+    times, launches, by_path = {}, {}, {}
     for path, title, serve_cfg, train_cfg, time_fn, groups in full:
         pred = Predictor.from_config(serve_cfg, seed=0, device="cuda")
         if serve_cfg.model.bias:
@@ -2214,6 +2346,7 @@ def main() -> int:
         # before); a later path's count of a kernel replaces an earlier one's
         for name in PATHS[path]["step"]:
             launches[name] = served[name] if name in PATHS[path]["forward"] else stepped[name]
+        by_path[path] = {name: launches[name] for name in PATHS[path]["step"]}
         gc.collect()
         torch.cuda.empty_cache()
     launches["flash_attn_bwd_split"] = stepped["flash_attn_bwd_split"]  # 0: T = 784 takes K8
@@ -2241,12 +2374,22 @@ def main() -> int:
 
     lifecycle_phase(smi)
     profiles = data_phase(smi)["profiles"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    kohonen = kohonen_phase(smi)
+    # this slice's path: K1–K4 and the prologue over its 3 + 12 passes
+    for name in PATHS["nvit-kohonen"]["step"]:
+        launches[name] = kohonen["served"][name] if name in PATHS["nvit-kohonen"]["forward"] \
+            else kohonen["stepped"][name]
+    by_path["nvit-kohonen"] = {name: launches[name] for name in PATHS["nvit-kohonen"]["step"]}
 
-    # launches: the flagship paths' (above); profile_launches: one step of
+    # launches: the flagship paths' (above; the Kohonen flagship's last);
+    # path_launches: each full path's own; profile_launches: one step of
     # each profile's config (batch 512, 32 px, remat), counted from 0
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": launches[name], "max_abs_err": errs[name], **times[name],
+         "path_launches": {p: got[name] for p, got in by_path.items() if name in got},
          "profile_launches": {p: got[name] for p, got in profiles.items()}}
         for name, (src, tpu) in KERNELS.items()
     ]}

@@ -5,9 +5,11 @@ to find: ``nvit_tpu/models/blocks.py`` ↔ ``nvit_tpu_torch/models/blocks.py``
 and so on.  ``nvit_tpu`` (JAX) stays the reference the port is tested against
 (``tests/test_torch_*.py``); this package imports ``torch`` and never ``jax``.
 
-Slices ported so far, for a non-Kohonen nViT and the baseline ViT
-(``use_nvit=False``), with or without biases (``bias: true``, as
-``settings.yaml`` runs it) and with any ``bounded_softmax``:
+Slices ported so far, for nViT and the baseline ViT (``use_nvit=False``),
+with or without biases (``bias: true``, as ``settings.yaml`` runs it) and
+the Kohonen SOM (``use_kohonen``: ``som/kohonen.py``, its losses in
+``models/losses.py``, the Hebbian update in ``train/step.py``), and with any
+``bounded_softmax``:
 
 * serving — ``serve.InferenceService`` → ``infer.Predictor`` →
   ``models.vit.ViT``;
@@ -42,8 +44,8 @@ of it against the integrated backward.
 
 Each kernel wrapper runs its plain PyTorch twin on CPU tensors and launches
 the CUDA kernel (or raises) on CUDA tensors.  The entry points run on the
-card unless the caller asks for the CPU.  Kohonen, bf16 moments, wandb
-and several cards, among others, come in later slices (ROADMAP.md §1).
+card unless the caller asks for the CPU.  bf16 moments, wandb, int8 and
+several cards, among others, come in later slices (ROADMAP.md §1).
 """
 
 __version__ = "0.2.0"

@@ -7,12 +7,14 @@ environment overrides (``configs/loader.py``) — and runs
 ``training.eval_only``, on the card unless ``NVIT_SYSTEM__DEVICE=cpu``.
 The packaged settings train on CIFAR-100 files in ``data.data_dir``
 (``cifar-100-python/``, or its archive beside it; ``data.download=true``
-fetches it) with AutoAugment and remat.  Settings the port has not ported
-raise ``NotImplementedError`` naming their ROADMAP.md item: the packaged
-default ``use_kohonen: true`` is one, and so is ``NVIT_MULTIHOST=1``.  The
-project's profiles without Kohonen run as they are::
+fetches it) with AutoAugment, remat, biases and the Kohonen SOM; the packaged
+default runs as it is, and so do the project's three profiles::
 
-    env $(cat profiles/nvit1_k0.env) NVIT_DATA__DATA_DIR=./data python -m nvit_tpu_torch
+    NVIT_DATA__DATA_DIR=./data python -m nvit_tpu_torch
+    env $(cat profiles/nvit1_k1.env) NVIT_DATA__DATA_DIR=./data python -m nvit_tpu_torch
+
+Settings the port has not ported raise ``NotImplementedError`` naming their
+ROADMAP.md item, ``NVIT_MULTIHOST=1`` among them.
 """
 
 from nvit_tpu_torch.train.trainer import main

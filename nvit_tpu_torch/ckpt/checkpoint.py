@@ -181,8 +181,9 @@ def load_checkpoint(out_dir: str | Path, name: str, state: TrainState) -> tuple[
     state.model.load_state_dict(_state_dict(leaves[:n], model_cfg), strict=True)
     opt = state.opt_state
     for moments, part in ((opt.mu, leaves[n + 1:2 * n + 1]), (opt.nu, leaves[2 * n + 1:3 * n + 1])):
-        for key, value in _state_dict(part, model_cfg).items():
-            moments[key].copy_(value)
+        sd = _state_dict(part, model_cfg)
+        for key, value in moments.items():  # the maps' buffers have no moments
+            value.copy_(sd[key])
     state.opt_state = FusedAdamWState(count=int(leaves[n]), mu=opt.mu, nu=opt.nu)
     state.step = int(leaves[-2])
     state.rng = np.array(leaves[-1], np.uint32)

@@ -9,7 +9,10 @@ package import pulls jax):
 * the local patch embed ``[C·p·p, d]`` → Conv2d ``[d, C, p, p]``;
 * the global patch embed ``[C·k·k, d]`` in the 2×2-block-major fan-in order →
   Conv2d ``[d, C, k, k]`` through the inverse of
-  ``models.patch.global_embed_permutation``.
+  ``models.patch.global_embed_permutation``;
+* with Kohonen, each map's ``nodes`` as they are and ``map_balance`` (0-d);
+  the maps' ``locations`` / ``offsets`` buffers are recomputed from the
+  config, and a moment dict (which has no buffers) gets none.
 
 The keys are the port's ``ViT.state_dict()`` keys.  In nViT mode they equal
 those of ``nvit_tpu/ckpt/torch_interop.py::state_dict_from_params`` without
@@ -31,7 +34,8 @@ import torch
 
 from nvit_tpu_torch.configs import ViTConfig
 from nvit_tpu_torch.models.patch import global_embed_permutation
-from nvit_tpu_torch.models.vit import check_supported
+from nvit_tpu_torch.models.vit import kohonen_spec
+from nvit_tpu_torch.som.kohonen import grid_locations, wrap_offsets
 
 
 def _t(a: Any) -> torch.Tensor:
@@ -46,7 +50,7 @@ def _linear(p: Mapping[str, Any], prefix: str, sd: dict) -> None:
 
 def state_dict_from_jax(params: Mapping[str, Any], cfg: ViTConfig) -> dict[str, torch.Tensor]:
     """``init_vit``-shaped tree with numpy (or array-like) leaves → state_dict."""
-    check_supported(cfg)
+    cfg.validate()
     d, c = cfg.n_embd, cfg.channels
     lp, gp = cfg.local_patch_size, cfg.global_patch_size
     sd: dict[str, torch.Tensor] = {}
@@ -62,6 +66,13 @@ def state_dict_from_jax(params: Mapping[str, Any], cfg: ViTConfig) -> dict[str, 
 
     sd["local_pos_embed"] = _t(params["local_pos_embed"])
     sd["global_pos_embed"] = _t(params["global_pos_embed"])
+    if cfg.use_kohonen:
+        spec = kohonen_spec(cfg)
+        sd["map_balance"] = _t(params["map_balance"])
+        for name in ("local_kohonen", "global_kohonen"):
+            sd[f"{name}.nodes"] = _t(params[name]["nodes"])
+            sd[f"{name}.locations"] = _t(grid_locations(spec))
+            sd[f"{name}.offsets"] = _t(wrap_offsets(spec))
 
     ca = params["cross_attention"]
     for name in ("q_local", "k_global", "v_global", "proj", "out_proj"):
@@ -116,7 +127,7 @@ def jax_params_from_state_dict(sd: Mapping[str, torch.Tensor], cfg: ViTConfig) -
     copy: linear weights back to ``[in, out]``, the patch embeds to their
     ``[C·k·k, d]`` matrices, the global one's fan-in onto the 2×2-block-major
     order of ``global_embed_permutation``."""
-    check_supported(cfg)
+    cfg.validate()
     d = cfg.n_embd
     perm = torch.from_numpy(global_embed_permutation(cfg.channels, cfg.global_patch_size,
                                                      cfg.local_patch_size))
@@ -156,6 +167,10 @@ def jax_params_from_state_dict(sd: Mapping[str, torch.Tensor], cfg: ViTConfig) -
                         for name in ("rmsnorm_att", "rmsnorm_mlp")})
         blocks.append(blk)
     params["blocks"] = blocks
+    if cfg.use_kohonen:
+        params["map_balance"] = _host(sd["map_balance"])
+        for name in ("local_kohonen", "global_kohonen"):
+            params[name] = {"nodes": _host(sd[f"{name}.nodes"])}
     if cfg.use_nvit:
         params["sz"] = _host(sd["sz"])
     return params

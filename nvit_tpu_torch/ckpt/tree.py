@@ -6,7 +6,8 @@ module gives the port that order and those shapes from the config alone:
 
 * ``param_tree`` — the skeleton of ``init_vit``'s tree (``nvit_tpu/models/
   vit.py:63-96``): nested dicts and the list of blocks, each leaf a
-  ``Spec(shape, dtype)``, for nViT and baseline, with or without biases;
+  ``Spec(shape, dtype)``, for nViT and baseline, with or without biases,
+  with or without the Kohonen maps;
 * ``flatten`` / ``unflatten`` — ``jax.tree_util``'s order: dict keys sorted,
   list items in order;
 * ``train_state_specs`` — ``TrainState(params, opt_state=FusedAdamWState(
@@ -25,7 +26,7 @@ from typing import Any, Iterator, NamedTuple
 import numpy as np
 
 from nvit_tpu_torch.configs import Config, ViTConfig
-from nvit_tpu_torch.models.vit import check_supported
+from nvit_tpu_torch.models.vit import kohonen_spec
 
 Path = tuple[Any, ...]  # dict keys (str) and list indices (int), root first
 
@@ -43,8 +44,8 @@ def _linear(i: int, o: int, bias: bool) -> dict[str, Spec]:
 
 
 def param_tree(cfg: ViTConfig) -> dict[str, Any]:
-    """``init_vit``'s tree for ``cfg`` with ``Spec`` leaves (Kohonen raises)."""
-    check_supported(cfg)
+    """``init_vit``'s tree for ``cfg`` with ``Spec`` leaves."""
+    cfg.validate()
     d, c, bias = cfg.n_embd, cfg.channels, cfg.bias
     lp, gp = cfg.local_patch_size, cfg.global_patch_size
     vec = Spec((d,))
@@ -79,6 +80,11 @@ def param_tree(cfg: ViTConfig) -> dict[str, Any]:
         "head_norm": {"w": vec, "b": vec},
         "head": _linear(d, cfg.num_classes, True),
     }
+    if cfg.use_kohonen:
+        spec = kohonen_spec(cfg)
+        for name in ("local_kohonen", "global_kohonen"):
+            params[name] = {"nodes": Spec((spec.num_nodes, d))}
+        params["map_balance"] = Spec(())
     if cfg.use_nvit:
         params["sz"] = Spec((cfg.num_classes,))
     return params

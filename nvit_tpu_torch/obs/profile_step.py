@@ -4,8 +4,10 @@
     python -m nvit_tpu_torch.obs.profile_step
 
 Builds ``flagship_config()`` nViT-B/16, ``flagship_config(use_nvit=
-False)``, the baseline ViT-B/16, then ``flagship_config(bias=True)``,
-nViT-B/16 as settings.yaml runs it, with random weights from a seed; for each
+False)``, the baseline ViT-B/16, ``flagship_config(bias=True)``,
+nViT-B/16 as settings.yaml runs it, then ``flagship_config(use_kohonen=True,
+kohonen_nodes=512)``, nViT-B/16 with its 512-node Kohonen SOM, with random
+weights from a seed; for each
 it warms up, then profiles ``STEPS`` training steps (kernel path) and as
 many serving forwards, both at ``flagship_config()``'s batch: the shape
 chip_smoke.py measures.  For each it prints the host-clock time
@@ -103,7 +105,8 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(f"card: {smi}; torch {torch.__version__}")
     for mode, cfg in (("nViT-B/16", flagship_config()), ("baseline ViT-B/16", flagship_config(use_nvit=False)),
-                      ("nViT-B/16, bias=True", flagship_config(bias=True))):
+                      ("nViT-B/16, bias=True", flagship_config(bias=True)),
+                      ("nViT-B/16 + 512-node Kohonen SOM", flagship_config(use_kohonen=True, kohonen_nodes=512))):
         m, b = cfg.model, cfg.training.batch_size
         data = make_synthetic(num_examples=b, image_size=m.image_size,
                               num_classes=m.num_classes, seed=0)

@@ -2,10 +2,13 @@
 
 One training step: the forward and the weighted loss, the backward (K2 and K4
 run inside it, behind ``FlashQKNormFn`` and ``GatedMLPFn``), then the fused
-clip + AdamW + renorm update.  Gradient accumulation runs over DISTINCT
-micro-batches: ``.grad`` sums them, and the sum is divided by the count
-(≙ the JAX ``lax.scan``, :99-134).  No GradScaler: bf16 needs no loss
-scaling.  PyTorch runs eagerly, so there is no jit and no mesh.
+clip + AdamW + renorm update, then — with Kohonen and ``kohonen_hebbian`` not
+"off" — the maps' Hebbian deltas added to their nodes (≙ :149-155).
+Gradient accumulation runs over DISTINCT micro-batches: ``.grad`` sums them,
+and the sum is divided by the count (≙ the JAX ``lax.scan``, :99-134); the
+Hebbian deltas, each computed against the pre-step nodes, are summed and not
+divided.  No GradScaler: bf16 needs no loss scaling.  PyTorch runs eagerly,
+so there is no jit and no mesh.
 """
 
 from __future__ import annotations
@@ -33,16 +36,23 @@ GRAD_NORM_GROUPS = {
 
 
 def make_loss_fn(cfg: Config):
-    """(model, images, labels) → (loss, terms)."""
+    """(model, images, labels, step=0) → (loss, (terms, SOM info)); the SOM
+    info holds the BMU indices and the Hebbian deltas at ``step``."""
     dt = compute_dtype_of(cfg)
 
-    def loss_fn(model, images: torch.Tensor, labels: torch.Tensor):
-        logits, aux = model.forward_train(images, compute_dtype=dt, remat=cfg.system.remat,
-                                          remat_skip=cfg.system.remat_skip_blocks)
-        return total_loss(cfg.model, cfg.training.consistency_weight,
-                          cfg.training.smoothness_weight, logits, labels, aux)
+    def loss_fn(model, images: torch.Tensor, labels: torch.Tensor, step: int = 0):
+        logits, aux, som_info = model.forward_train(
+            images, step=step, compute_dtype=dt, remat=cfg.system.remat,
+            remat_skip=cfg.system.remat_skip_blocks)
+        loss, terms = total_loss(cfg.model, cfg.training.consistency_weight,
+                                 cfg.training.smoothness_weight, logits, labels, aux)
+        return loss, (terms, som_info)
 
     return loss_fn
+
+
+# the maps the Hebbian deltas go to: SOM info key → the map's nodes parameter
+HEBBIAN_DELTAS = {"local_delta": "local_kohonen.nodes", "global_delta": "global_kohonen.nodes"}
 
 
 def make_train_step(
@@ -67,13 +77,15 @@ def make_train_step(
         for p in params.values():
             p.grad = None
         micro = b // accum
-        terms = None
+        terms = deltas = None
         for i in range(accum):
             sl = slice(i * micro, (i + 1) * micro)
-            loss, t = loss_fn(state.model, images[sl], labels[sl])
+            loss, (t, som_info) = loss_fn(state.model, images[sl], labels[sl], state.step)
             loss.backward()
             t = {k: v.detach() for k, v in t.items()}
             terms = t if terms is None else {k: terms[k] + t[k] for k in terms}
+            d = {k: som_info[k] for k in HEBBIAN_DELTAS if k in som_info}
+            deltas = d if deltas is None else {k: deltas[k] + d[k] for k in deltas}
         # a parameter outside the loss (the reconstruction head) has a zero
         # gradient, as in JAX; accumulated sums are divided by the count
         grads = {n: torch.zeros_like(p) if p.grad is None else p.grad for n, p in params.items()}
@@ -83,6 +95,10 @@ def make_train_step(
 
         state.opt_state = fused_adamw_renorm_update(
             cfg.optimizer, params, grads, state.opt_state, renorm=cfg.model.use_nvit)
+        with torch.no_grad():
+            for key, delta in deltas.items():
+                nodes = params[HEBBIAN_DELTAS[key]]
+                nodes.copy_(nodes + delta.to(nodes.dtype))
         metrics: Metrics = dict(terms)
         metrics["learning_rate"] = cosine_lr(cfg.optimizer, state.step)
         if want_norms:
@@ -106,12 +122,13 @@ def make_train_step(
 
 def make_eval_step(cfg: Config) -> Callable[[torch.nn.Module, torch.Tensor, torch.Tensor], Metrics]:
     """(model, images, labels) → per-batch metrics: the weighted loss, its
-    terms, top-1 and top-5 accuracy (≙ step.py:make_eval_step)."""
+    terms (the Kohonen ones included), top-1 and top-5 accuracy
+    (≙ step.py:make_eval_step, at step 0 and without the Hebbian deltas)."""
     dt = compute_dtype_of(cfg)
 
     @torch.no_grad()
     def eval_step(model, images: torch.Tensor, labels: torch.Tensor) -> Metrics:
-        logits, aux = model.forward_train(images, compute_dtype=dt)
+        logits, aux, _ = model.forward_train(images, hebbian=False, compute_dtype=dt)
         loss, terms = total_loss(cfg.model, cfg.training.consistency_weight,
                                  cfg.training.smoothness_weight, logits, labels, aux)
         top1, top5 = topk_accuracy(logits, labels)

@@ -3,7 +3,9 @@
 / ``validate`` / ``validate_only`` / ``evaluate`` :668-806, the checkpoint
 protocol :808-926, the signal handlers and ``cleanup`` :929-1013, ``main``).
 
-Ported: the datasets of ``data.dataset`` (CIFAR-10/100 files, fetched
+Ported: every model the JAX package trains (nViT and baseline, with or
+without biases and the Kohonen SOM, whose Hebbian deltas the train step
+adds after the update), the datasets of ``data.dataset`` (CIFAR-10/100 files, fetched
 under ``data.download``; ImageNet folders; digits; synthetic), their epoch
 batches uploaded by ``device_prefetch`` (``data.num_workers`` decode
 threads for folders, ``data.prefetch`` batches in flight), AutoAugment on
@@ -39,8 +41,7 @@ protocol:
 Not ported yet, and refused at construction with ``NotImplementedError``
 naming the ROADMAP.md item, never skipped silently: wandb (and
 ``init_from="wandb"``); bf16 moments; more than one device; gradient
-histograms, profiling and the NaN sanitizer; Kohonen (``models.vit.check_supported``);
-orbax checkpoints (on ROADMAP.md's do-not-port list).  One process loads
+histograms, profiling and the NaN sanitizer; orbax checkpoints (on ROADMAP.md's do-not-port list).  One process loads
 the data, so ``data.download`` needs no master gating.  ``jit``, ``compile``,
 ``compilation_cache_dir``, ``clear_cache`` and ``backend`` are TPU/XLA
 settings with no PyTorch counterpart and are ignored, and so is
@@ -71,7 +72,7 @@ from nvit_tpu_torch.data.datasets import load_dataset
 from nvit_tpu_torch.data.pipeline import device_prefetch, make_epoch_iterator
 from nvit_tpu_torch.models.blocks import SQK_INIT_VALUE
 from nvit_tpu_torch.models.schedules import cosine_lr
-from nvit_tpu_torch.models.vit import check_supported, estimate_flops_per_iter, num_params
+from nvit_tpu_torch.models.vit import estimate_flops_per_iter, num_params
 from nvit_tpu_torch.obs.metrics import (
     MetricsWriter,
     StepTimer,
@@ -112,7 +113,7 @@ def check_ported(cfg: Config, device: torch.device) -> None:
             "ROADMAP.md's do-not-port list; use 'npz', the JAX package's default")
     if d.checkpoint_backend != "npz":
         raise ValueError(f"checkpoint_backend must be 'npz' or 'orbax', got {d.checkpoint_backend!r}")
-    check_supported(cfg.model)  # Kohonen, before anything is made on the device
+    cfg.model.validate()  # before anything is made on the device
     unported = [
         (t.init_from == "wandb", "training.init_from='wandb'", "wandb"),
         (cfg.wandb.mode != "disabled", f"wandb.mode={cfg.wandb.mode!r}", "wandb"),
@@ -421,18 +422,23 @@ class Trainer:
         max_batches = None
         if quick and cfg.system.quick_validation:
             max_batches = max(1, cfg.system.quick_validation_size // cfg.training.batch_size)
-        keep = ("loss", "top1_accuracy", "top5_accuracy")
+        # (eval-step key, logged name), the Kohonen terms under the JAX trainer's names
+        keep = [("loss", "loss"), ("top1_accuracy", "top1_accuracy"), ("top5_accuracy", "top5_accuracy")]
+        if cfg.model.use_kohonen:
+            keep += [("kohonen_consistency", "consistency_loss"), ("kohonen_smoothness", "smoothness_loss"),
+                     ("local_quantization", "local_quantization_loss"),
+                     ("global_quantization", "global_quantization_loss")]
         collected = []
         for imgs_u8, labels in self._epoch_iter(self.valset, epoch=0, shuffle=False, drop_last=False):
             if max_batches is not None and len(collected) >= max_batches:
                 break
             m = self._eval_step(self.state.model, self._preprocess(imgs_u8, train=False), labels)
-            collected.append(torch.stack([m[k].float() for k in keep]))
+            collected.append(torch.stack([m[k].float() for k, _ in keep]))
         if not collected:
             raise ValueError(f"validation produced zero batches: val set has {len(self.valset)} "
                              f"examples for batch {cfg.training.batch_size}")
         means = torch.stack(collected).cpu().double().mean(dim=0).tolist()
-        return {f"val/{k}": v for k, v in zip(keep, means)}
+        return {f"val/{name}": v for (_, name), v in zip(keep, means)}
 
     def validate_only(self) -> dict[str, float]:
         """``eval_only``: the full validation pass on the resumed checkpoint

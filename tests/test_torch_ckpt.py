@@ -19,8 +19,8 @@
 import dataclasses
 import gc
 import json
-import os
 import signal
+import threading
 import weakref
 
 import jax
@@ -361,7 +361,9 @@ def test_signal_inside_a_step_waits_for_its_end(trainer_with, tmp_path, signals,
     def signalled_step(state, images, labels):
         if state.step == 1:
             for _ in range(signals):
-                os.kill(os.getpid(), signal.SIGTERM)
+                # to this thread: a process-directed signal may wait for another
+                # thread, and a second one sent meanwhile merges with it
+                signal.pthread_kill(threading.get_ident(), signal.SIGTERM)
         return step(state, images, labels)
 
     trainer._train_step = trainer._train_step_norms = signalled_step

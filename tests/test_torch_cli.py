@@ -139,9 +139,27 @@ def test_train_cli_runs_resumes_and_evaluates(tiny_run, monkeypatch):
 
 
 def test_train_cli_refuses_the_packaged_defaults_and_multihost(tmp_path, monkeypatch):
+    """The packaged settings.yaml — CIFAR-100 files, AutoAugment, remat,
+    biases and the Kohonen SOM — trains as it is, on a tiny CIFAR tree at a
+    small batch; several processes are still refused."""
+    from tests.test_torch_remat import write_cifar100
+
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="Kohonen"):
-        train_main()  # settings.yaml trains CIFAR-100 with AutoAugment and remat (ported), and Kohonen
+    write_cifar100(tmp_path / "data", n_train=32, n_test=16)
+    for k, v in {"NVIT_SYSTEM__DEVICE": "cpu", "NVIT_TRAINING__BATCH_SIZE": "16",
+                 "NVIT_TRAINING__MAX_ITERS": "2", "NVIT_TRAINING__EVAL_INTERVAL": "2",
+                 "NVIT_TRAINING__EVAL_ITERS": "1", "NVIT_TRAINING__LOG_INTERVAL": "1",
+                 "NVIT_SYSTEM__QUICK_VALIDATION_SIZE": "16", "NVIT_DATA__NUM_WORKERS": "1"}.items():
+        monkeypatch.setenv(k, v)
+    train_main()
+    meta = port_ckpt.load_checkpoint_meta(tmp_path / "out", "checkpoint_latest")
+    model = meta["config"]["model"]
+    assert meta["iter_num"] == 2 and model["use_kohonen"] and model["bias"] and model["kohonen_nodes"] == 64
+    assert meta["config"]["system"]["remat"] and meta["config"]["data"]["augmentation"]["auto_augment"]
+    lines = [json.loads(x) for x in (tmp_path / "out" / "metrics.jsonl").read_text().splitlines()]
+    evals = [x for x in lines if "val/loss" in x]
+    assert evals and all(np.isfinite(evals[-1][f"val/{k}"]) for k in (
+        "consistency_loss", "smoothness_loss", "local_quantization_loss", "global_quantization_loss"))
     monkeypatch.setenv("NVIT_MULTIHOST", "1")
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         train_main()

@@ -187,10 +187,21 @@ def test_state_dict_from_jax_matches_torch_interop(bias):
 
 
 def test_unported_modes_raise():
-    """Kohonen is refused; baseline mode (use_nvit=False) is ported and builds
-    with its own parameters (tests/test_torch_baseline.py holds it against JAX)."""
-    with pytest.raises(NotImplementedError, match="Kohonen"):
-        ViT(port_config(small_vit_cfg(use_kohonen=True)), device="cpu")
+    """Kohonen (tests/test_torch_kohonen.py holds it against JAX) and
+    baseline mode (use_nvit=False; tests/test_torch_baseline.py) are ported:
+    a Kohonen ViT builds with the reference state_dict keys — the interop's,
+    minus the unused nViT rmsnorm weights — in the reference order outside
+    the blocks (map_balance before sz, the maps between the patch embeds and
+    the cross-attention), and the baseline one with its own parameters."""
+    from nvit_tpu.ckpt.torch_interop import reference_state_dict_order
+
+    cfg = small_vit_cfg(use_kohonen=True, kohonen_nodes=18)
+    names = list(ViT(port_config(cfg), device="cpu").state_dict())
+    ref = [k for k in reference_state_dict_order(cfg) if ".rmsnorm_" not in k]
+    assert sorted(names) == sorted(ref)
+    assert [k for k in names if not k.startswith("transformer.")] == [
+        k for k in ref if not k.startswith("transformer.")]
+    assert "local_kohonen.locations" in names and "map_balance" in names
     names = set(ViT(port_config(small_vit_cfg(use_nvit=False)), device="cpu").state_dict())
     assert "transformer.h.0.rmsnorm_att.weight" in names and "sz" not in names
 

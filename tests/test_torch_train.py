@@ -392,7 +392,7 @@ def test_trainer_takes_the_checkpoint_settings(tmp_path, kw):
     ("optimizer", dict(moments_dtype="bfloat16"), "bf16 moments"),
     ("system", dict(model_parallel=2), "multi-GPU"),
     ("system", dict(profile_steps=2), "observability"),
-    ("model", dict(use_kohonen=True), "Kohonen"),
+    ("system", dict(log_grad_histograms=True), "observability"),
     ("system", dict(debug_nans=True), "observability"),
     ("training", dict(init_from="wandb"), "wandb"),
     ("data", dict(checkpoint_backend="orbax"), "do-not-port"),

@@ -54,3 +54,35 @@ def baseline_params(cfg, seed):
         for name in names:
             p[name]["w"] = 5 * p[name]["w"]
     return params
+
+
+def kohonen_fields(**kw) -> dict:
+    """The Kohonen tests' tiny model (16 px, 1 layer, d = 32; 18 nodes:
+    two 3×3 maps) with ``kw`` over it."""
+    base = dict(image_size=16, n_layer=1, n_head=2, n_embd=32, num_classes=10, local_patch_size=4,
+                global_patch_size=8, use_nvit=True, use_kohonen=True, kohonen_nodes=18, flash_attn=True)
+    base.update(kw)
+    return base
+
+
+def paired_configs(model: dict, **sections):
+    """(JAX Config, port Config), field for field equal; each section is
+    ``name=(dataclass name, fields)``."""
+    from nvit_tpu.configs import schema as jax_schema
+    from nvit_tpu_torch import configs as port_schema
+
+    def build(mod):
+        return mod.Config(model=mod.ViTConfig(**model),
+                          **{k: getattr(mod, cls)(**v) for k, (cls, v) in sections.items()})
+    return build(jax_schema), build(port_schema)
+
+
+def kohonen_params(jcfg, seed: int) -> dict:
+    """random_jax_params with the maps' nodes near the embeddings' scale, so
+    the BMUs spread over the map."""
+    params = random_jax_params(jcfg, seed=seed)
+    rng = np.random.default_rng(seed + 50)
+    for name in ("local_kohonen", "global_kohonen"):
+        shape = params[name]["nodes"].shape
+        params[name]["nodes"] = (0.05 * rng.standard_normal(shape)).astype(np.float32)
+    return params
