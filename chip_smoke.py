@@ -124,6 +124,26 @@ then this slice's path:
                the reconstruction head among them) against the plain path,
                ten steps lowering the loss, step ms, img/s, MFU, peak
                memory, Trainer.train().
+13. settings — the trainer's single-card settings at nViT-B/16 (batch 32,
+               bf16, synthetic data): the bf16-moment SR store of one leaf
+               of each layout class, both dithers, bit-equal on the card and
+               the CPU; ten steps with fp32, bf16 "hash" and bf16 "threefry"
+               moments from the same weights (final loss within 1% of
+               fp32's; step ms, peak memory, device launches a step by
+               torch.profiler; K1–K4 13 a step, the prologue 26, and no
+               other kernel); the trace window's cost; a save after 2 bf16
+               steps and a resume bit-equal in all 459 leaves to 4 straight
+               steps; debug_nans raising on a NaN input; Trainer.train()
+               with bf16 moments, gradient histograms (152 gradhist/* keys
+               at the eval, each summing to its downsampled size),
+               profile_steps=2 (a trace holding K1–K4's and the prologue's
+               kernels) and wandb offline through a recording stand-in
+               module (its log calls and histograms, checkpoint_best's
+               artifact of two files, init_from="wandb" from it); the
+               reference .pt through ``python -m
+               nvit_tpu_torch.ckpt.torch_interop`` export then import
+               (params and moments bit-equal, the .pt's model strict-loaded
+               without its 24 rmsnorm keys giving the checkpoint's logits).
 
 K9 is not on any main path (T = 784 ≤ 1024 takes K8), nor is K10 (only the
 bench runs it), so their launch counts in the summary are 0 per training
@@ -131,8 +151,8 @@ step; the kernels phase checks both, the bench phase runs K10 (its count
 there is the summary's ``bench_launches``) and the times phases time both.
 The line before the last is a JSON summary of the kernels (``launches``
 from the last full path that runs each, the Kohonen flagship's for K1–K4
-and the prologue; ``path_launches`` per full path; ``profile_launches`` per
-profile); the last line is
+and the prologue; ``path_launches`` per full path and per step of phase
+13's bf16-moment step; ``profile_launches`` per profile); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -2295,6 +2315,330 @@ def kohonen_phase(smi: str) -> dict:
     return {"served": served, "stepped": stepped}
 
 
+# the training settings phase: bf16 moments, observability, reference .pt interop
+SETTINGS_STEPS = 10  # steps of each moment storage against the others
+BF16_LOSS_RTOL = 0.01  # the bf16-moment runs' final loss against the fp32 run's
+# the trace must hold the path's kernels: K1, K2 (both walks), K3, K4 and the prologue
+TRACE_KERNELS = ("qknorm_attn_fwd_kernel", "qknorm_attn_bwd_dkv_kernel", "qknorm_attn_bwd_dq_kernel",
+                 "gated_mlp_fwd_kernel", "gated_mlp_bwd_kernel", "qknorm_project_kernel")
+
+
+def device_launches(fn) -> int:
+    """Kernels and copies the card runs in ``fn`` (torch.profiler's device events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(ev.count for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA and "Command Buffer Full" not in ev.key)
+
+
+def recording_wandb(calls: dict, download_dir: Path):
+    """A stand-in ``wandb`` module that records what the port sends it (the
+    card's machine has no wandb package)."""
+    import types
+
+    mod = types.ModuleType("wandb")
+    mod.login = lambda key=None: calls["login"].append(key)
+    mod.init = lambda **kw: calls["init"].append(kw)
+    mod.log = lambda metrics, step=None: calls["log"].append((step, metrics))
+    mod.finish = lambda: calls["finish"].append(True)
+    mod.Histogram = lambda np_histogram: types.SimpleNamespace(np_histogram=np_histogram)
+
+    class Artifact:
+        def __init__(self, name, type, metadata=None):
+            self.name, self.files = name, []
+
+        def add_file(self, path):
+            self.files.append(Path(path))
+
+    mod.Artifact = Artifact
+    mod.log_artifact = lambda a: calls["artifacts"].append(
+        (a.name, [f.name for f in a.files], [f.stat().st_size for f in a.files]))
+    class Api:
+        def artifact(self, name, type=None):
+            calls["requested"].append(name)
+            return types.SimpleNamespace(download=lambda: str(download_dir),
+                                         delete=lambda: calls["deleted"].append(name))
+
+    mod.Api = Api
+    mod.run = types.SimpleNamespace(entity="chip", project="smoke")
+    return mod
+
+
+def settings_phase(smi: str) -> dict:
+    """Phase 13: the trainer's single-card settings at nViT-B/16 full width
+    (flagship_config(): batch 32, bf16, synthetic data) → the launches of one
+    bf16-moment training step."""
+    import shutil
+    import tempfile
+
+    from nvit_tpu_torch.ckpt.checkpoint import restore_for_resume, save_checkpoint, state_leaves
+    from nvit_tpu_torch.ckpt.convert import jax_path
+    from nvit_tpu_torch.configs import AugmentationConfig
+    from nvit_tpu_torch.data.augment import normalize
+    from nvit_tpu_torch.infer import Predictor
+    from nvit_tpu_torch.models.presets import flagship_config
+    from nvit_tpu_torch.models.vit import ViT
+    from nvit_tpu_torch.obs.grad_hist import MAX_ELEMS
+    from nvit_tpu_torch.obs.metrics import MetricsWriter
+    from nvit_tpu_torch.obs.profiling import start_trace, stop_trace
+    from nvit_tpu_torch.scripts.step_time import step_ms, sync_step
+    from nvit_tpu_torch.train import optim
+    from nvit_tpu_torch.train.state import create_train_state
+    from nvit_tpu_torch.train.step import make_train_step
+    from nvit_tpu_torch.train.trainer import Trainer
+
+    phase("training settings nViT-B/16 (flagship_config: batch 32, bf16): bf16 moments with stochastic "
+          "rounding, gradient histograms, the trace window, wandb, the NaN sanitizer, reference .pt interop")
+    t_phase = time.perf_counter()
+    base = flagship_config()
+    m = base.model
+    check(m.use_nvit and not m.use_kohonen and m.n_embd == 768 and base.training.batch_size == 32,
+          "the flagship config drifted")
+    want = per_pass(PATHS["nvit"]["step"], n_passes(m))
+    u8, images, labels = batch32(m)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_settings_"))
+
+    def with_opt(cfg, **kw):
+        return dataclasses.replace(cfg, optimizer=dataclasses.replace(cfg.optimizer, **kw))
+
+    # one leaf of each layout class (a linear, both patch embeds, 1-D, 0-D):
+    # the store on the card bit-equal to the store on the CPU, both dithers
+    d, c, lp, gp = m.n_embd, m.channels, m.local_patch_size, m.global_patch_size
+    leaves = [("transformer.h.0.query.weight", (d, d)), ("local_patch_embed.weight", (d, c, lp, lp)),
+              ("global_patch_embed.1.weight", (d, c, gp, gp)), ("sz", (m.num_classes,)), ("map_balance", ())]
+    gen = torch.Generator().manual_seed(13)
+    special = torch.tensor([math.inf, -math.inf, math.nan, 0.99999994, 3.4028235e38, 0.0])
+    for dither in ("hash", "threefry"):
+        ocfg = dataclasses.replace(base.optimizer, moments_dtype="bfloat16", sr_dither=dither)
+        for name, shape in leaves:
+            x = torch.randn(shape, generator=gen) * 1e-3
+            if x.numel() > special.numel():
+                x.view(-1)[:special.numel()] = special
+            got = {dev: optim.sr_store(ocfg, 7, name, optim.jax_index(name, shape, lp, dev))(x.to(dev), 1)
+                   for dev in ("cpu", "cuda")}
+            same = torch.equal(got["cpu"].view(torch.int16), got["cuda"].cpu().view(torch.int16))
+            check(same, f"SR store ({dither}) of {name} {tuple(shape)}: the card differs from the CPU")
+    print(f"SR stores of {len(leaves)} leaves (a linear, both patch embeds, 1-D, 0-D; ±inf, NaN, a carry, "
+          "the largest float), hash and threefry: the card bit-equal to the CPU")
+
+    # ten steps each: fp32 moments, bf16 hash, bf16 threefry, from the same weights
+    cfg0 = with_opt(base, warmup_iters=0)
+    runs = {}
+    for label, kw in (("fp32", dict(moments_dtype="float32")),
+                      ("bf16 hash", dict(moments_dtype="bfloat16", sr_dither="hash")),
+                      ("bf16 threefry", dict(moments_dtype="bfloat16", sr_dither="threefry"))):
+        cfg = with_opt(cfg0, **kw)
+        state = create_train_state(cfg, seed=1, device="cuda")
+        step = make_train_step(cfg, log_norms=False)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, times = [], []
+        for _ in range(SETTINGS_STEPS):
+            t0 = time.perf_counter()
+            losses.append(float(step(state, images, labels)[1]["total_loss"]))  # ends in a sync
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        reset_counts()
+        sync_step(step, state, images, labels)
+        counts = read_counts()
+        check_launches(counts, want, f"one training step, {label} moments")
+        dev = device_launches(lambda: sync_step(step, state, images, labels))
+        runs[label] = dict(loss=losses[-1], ms=statistics.median(times[2:]), peak=peak, device_launches=dev,
+                           counts=counts, moments_gib=sum(t.numel() * t.element_size() for t in (
+                               *state.opt_state.mu.values(), *state.opt_state.nu.values())) / 2**30)
+        print(f"{label} moments, {SETTINGS_STEPS} steps on one batch: loss {losses[0]:.5f} → {losses[-1]:.5f}; "
+              f"step {runs[label]['ms']:.3f} ms (median of steps 3–{SETTINGS_STEPS}; "
+              f"{', '.join(f'{t:.1f}' for t in times)}); peak {peak:.3f} GiB; moments "
+              f"{runs[label]['moments_gib']:.3f} GiB; {dev} device launches a step [{smi}]")
+        if label == "fp32":
+            # the trace window's cost: three steps untraced, then three traced
+            plain_ms = step_ms(step, state, images, labels, 3)
+            prof = start_trace(root / "trace_cost", torch.device("cuda"))
+            traced_ms = step_ms(step, state, images, labels, 3)
+            t0 = time.perf_counter()
+            stop_trace(prof)
+            runs["trace"] = dict(plain=plain_ms, traced=traced_ms, write_s=time.perf_counter() - t0)
+            print(f"trace window: a step {traced_ms:.3f} ms traced against {plain_ms:.3f} ms untraced; "
+                  f"writing the trace {runs['trace']['write_s']:.2f} s [{smi}]")
+        del state, step
+        torch.cuda.empty_cache()
+    for label in ("bf16 hash", "bf16 threefry"):
+        r, f = runs[label], runs["fp32"]
+        rel = abs(r["loss"] - f["loss"]) / abs(f["loss"])
+        print(f"{label} against fp32 moments: final loss rel. diff {rel:.2e} (bound {BF16_LOSS_RTOL}); step "
+              f"{r['ms'] - f['ms']:+.3f} ms ({r['ms'] / f['ms'] - 1:+.1%}); peak {r['peak'] - f['peak']:+.3f} GiB; "
+              f"device launches {r['device_launches'] - f['device_launches']:+d} a step [{smi}]")
+        check(math.isfinite(r["loss"]) and rel <= BF16_LOSS_RTOL, f"{label}: the loss left fp32's")
+
+    # save after 2 steps, restore, 2 more: bit-equal to 4 straight steps
+    cfgh = with_opt(cfg0, moments_dtype="bfloat16", sr_dither="hash")
+    step = make_train_step(cfgh, log_norms=False)
+    batches = [(images.roll(k, 0), labels.roll(k, 0)) for k in range(4)]
+    state = create_train_state(cfgh, seed=2, device="cuda")
+    for b in batches:
+        step(state, *b)
+    straight = state_leaves(state)
+    state = create_train_state(cfgh, seed=2, device="cuda")
+    for b in batches[:2]:
+        step(state, *b)
+    save_checkpoint(root / "half", "checkpoint_latest", state, cfgh)
+    del state
+    state, _, _ = restore_for_resume(root / "half", "checkpoint_latest", device="cuda")
+    check(all(t.dtype == torch.bfloat16 for t in state.opt_state.mu.values()), "the restore lost the bf16 moments")
+    for b in batches[2:]:
+        step(state, *b)
+    resumed = state_leaves(state)
+    del state, step
+    torch.cuda.empty_cache()
+    differ = [i for i, (x, y) in enumerate(zip(straight, resumed)) if x.dtype != y.dtype or x.tobytes() != y.tobytes()]
+    n_bf16 = sum(x.dtype.kind == "V" for x in straight)
+    print(f"bf16 moments, save after 2 steps and resume for 2 against 4 straight: {len(straight)} leaves "
+          f"({n_bf16} bf16), {len(differ)} differ")
+    check(len(straight) == len(resumed) == 459 and n_bf16 == 304 and not differ,
+          "the resumed bf16-moment run is not bit-equal to the straight run")
+
+    # the NaN sanitizer: raises on a NaN input; launches as without it
+    cfgn = dataclasses.replace(base, system=dataclasses.replace(base.system, debug_nans=True))
+    state = create_train_state(cfgn, seed=3, device="cuda")
+    step = make_train_step(cfgn, log_norms=False)
+    reset_counts()
+    sync_step(step, state, images, labels)
+    check_launches(read_counts(), want, "one training step under debug_nans")
+    bad = images.clone()
+    bad[0, 0, 5, 7] = math.nan
+    try:
+        step(state, bad, labels)
+        raised = None
+    except FloatingPointError as e:
+        raised = str(e)
+    print(f"debug_nans on a step with a NaN input: {raised}")
+    check(raised is not None, "debug_nans did not raise on a NaN input")
+    del state, step
+    torch.cuda.empty_cache()
+
+    # Trainer.train(): bf16 moments, histograms, the trace window, wandb offline (stand-in)
+    calls = {k: [] for k in ("login", "init", "log", "finish", "artifacts", "requested", "deleted")}
+    out = root / "run"
+    saved_wandb = sys.modules.get("wandb")
+    sys.modules["wandb"] = recording_wandb(calls, out)
+    try:
+        tcfg = dataclasses.replace(
+            with_opt(base, moments_dtype="bfloat16"),
+            training=dataclasses.replace(base.training, max_iters=4, eval_interval=2, eval_iters=1, log_interval=1,
+                                         always_save_checkpoint=True),
+            system=dataclasses.replace(base.system, quick_validation_size=32, log_grad_histograms=True,
+                                       profile_steps=2),
+            wandb=dataclasses.replace(base.wandb, mode="offline", run_name="chip_smoke"),
+            data=dataclasses.replace(base.data, dataset="synthetic", out_dir=str(out), checkpoint_dir=str(out),
+                                     augmentation=AugmentationConfig(auto_augment=False)))
+        trainer = Trainer(tcfg, device="cuda")
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer.train()
+        train_s = time.perf_counter() - t0
+        counts = read_counts()
+        print(f"Trainer.train(), 4 iterations (evals at 0 and 2): {train_s:.1f} s; launches {counts}")
+        for name in PATHS["nvit"]["step"]:
+            check(counts[name] >= 4 * want[name], f"Trainer: {name} launched {counts[name]} times")
+        traces = list((out / "profile").glob("*.pt.trace.json"))
+        check(len(traces) == 1, f"{len(traces)} trace files under out_dir/profile")
+        text = traces[0].read_text()
+        missing = [k for k in TRACE_KERNELS if k not in text]
+        print(f"trace {traces[0].name}: {traces[0].stat().st_size} bytes; the path's kernels missing: {missing}")
+        check(not missing, f"the trace lacks {missing}")
+        lines = [json.loads(x) for x in (out / "metrics.jsonl").read_text().splitlines()]
+        numel = {"gradhist/" + ".".join(map(str, jax_path(n))): p.numel()
+                 for n, p in trainer.state.model.named_parameters()}
+        with_hist = [x for x in lines if any(k.startswith("gradhist/") for k in x)]
+        check([x["_step"] for x in with_hist] == [2], "gradhist/* not logged at the eval of iteration 2 alone")
+        hists = {k: v for k, v in with_hist[0].items() if k.startswith("gradhist/")}
+        kept = {k: len(range(0, n, -(-n // MAX_ELEMS))) for k, n in numel.items()}
+        wrong = [k for k, v in hists.items() if len(v) != 64 or sum(v) != kept[k]]
+        print(f"eval at 2: {len(hists)} gradhist/* keys; counts that do not sum to their downsampled size: {wrong}")
+        check(len(hists) == 152 and set(hists) == set(numel) and not wrong, "bad gradient histograms")
+        logged = [s for s, _ in calls["log"]]
+        rendered = sum(hasattr(v, "np_histogram") for _, met in calls["log"] for k, v in met.items()
+                       if k.startswith("gradhist/"))
+        print(f"wandb stand-in: init {[(kw['mode'], kw['project']) for kw in calls['init']]}, {len(logged)} log "
+              f"calls (metrics.jsonl {len(lines)} lines), {rendered} histograms, finish {len(calls['finish'])}")
+        check(logged == [x["_step"] for x in lines] and rendered == 152 and len(calls["finish"]) == 1
+              and not calls["login"], "the wandb stand-in did not see the run")
+        trainer.metrics_writer = MetricsWriter(out, wandb_mode="offline", run_name="chip_smoke")
+        calls["artifacts"].clear()
+        trainer.save_best(trainer.last_metrics)
+        trainer.metrics_writer.finish()
+        print(f"checkpoint_best as an artifact: {calls['artifacts']}")
+        check(len(calls["artifacts"]) == 1
+              and calls["artifacts"][0][1] == ["checkpoint_best.npz", "checkpoint_best.json"], "no artifact")
+        best = trainer.state.model.state_dict()
+        del trainer
+        torch.cuda.empty_cache()
+        # init_from="wandb" from that artifact (online: the stand-in needs no login)
+        calls["requested"].clear()  # save_best asked for the previous version to delete it
+        wcfg = dataclasses.replace(tcfg, training=dataclasses.replace(tcfg.training, init_from="wandb"),
+                                   wandb=dataclasses.replace(tcfg.wandb, mode="online"),
+                                   data=dataclasses.replace(tcfg.data, out_dir=str(root / "from_wandb")))
+        t0 = time.perf_counter()
+        resumed = Trainer(wcfg, device="cuda")
+        print(f"init_from=wandb: artifact {calls['requested']}, iteration {resumed.iter_num}, "
+              f"{time.perf_counter() - t0:.1f} s")
+        check(resumed.iter_num == 4 and calls["requested"] == [tcfg.wandb.artifact_name]
+              and all(torch.equal(v, best[k]) for k, v in resumed.state.model.state_dict().items()),
+              "init_from=wandb did not restore the artifact's checkpoint_best")
+        del resumed, best
+        torch.cuda.empty_cache()
+    finally:
+        if saved_wandb is None:
+            sys.modules.pop("wandb", None)
+        else:
+            sys.modules["wandb"] = saved_wandb
+
+    # the reference .pt: export, then import, through the CLI
+    pt = root / "checkpoint_latest.pt"
+    t0 = time.perf_counter()
+    said = Cli(["nvit_tpu_torch.ckpt.torch_interop", "export", "--checkpoint", str(out), "--name",
+                "checkpoint_latest", "--dest", str(pt)], {}, root,
+               "python -m nvit_tpu_torch.ckpt.torch_interop export").run()[-1]
+    export_s = time.perf_counter() - t0
+    print(f"  {said}")
+    t0 = time.perf_counter()
+    said = Cli(["nvit_tpu_torch.ckpt.torch_interop", "import", "--pt", str(pt), "--dest", str(root / "imported"),
+                "--name", "checkpoint_latest"], {}, root, "python -m nvit_tpu_torch.ckpt.torch_interop import").run()[-1]
+    import_s = time.perf_counter() - t0
+    print(f"  {said}")
+    a, b = npz_leaves(out / "checkpoint_latest.npz"), npz_leaves(root / "imported" / "checkpoint_latest.npz")
+    n = (len(a) - 3) // 3
+    upcast = [(x.view(np.uint16).astype(np.uint32) << 16).view(np.float32) if x.dtype.kind == "V" else x
+              for x in a]
+    differ = [i for i in range(len(a) - 1) if not np.array_equal(upcast[i], b[i])]
+    print(f"export {pt.name}: {pt.stat().st_size} bytes, {export_s:.1f} s; import {import_s:.1f} s (each with "
+          f"its process start); {n} params, {2 * n} moments (bf16 → fp32), count, step: {len(differ)} differ [{smi}]")
+    check(len(a) == len(b) == 459 and not differ and all(b[i].dtype == np.float32 for i in range(n + 1, 3 * n + 1)),
+          "export then import did not give the checkpoint's params and moments back")
+    ref = torch.load(pt, map_location="cpu", weights_only=False)
+    unused = [k for k in ref["model"] if "rmsnorm" in k]
+    check(len(unused) == 2 * m.n_layer, f"{len(unused)} rmsnorm keys in the .pt")
+    model = ViT(m, device="cuda")
+    model.load_state_dict({k: v for k, v in ref["model"].items() if k not in unused}, strict=True)
+    with torch.inference_mode():
+        x = normalize(torch.from_numpy(u8).cuda())
+        got = model.eval()(x, compute_dtype=torch.bfloat16)
+        want_logits = Predictor.from_checkpoint(out, "checkpoint_latest", device="cuda").model(
+            x, compute_dtype=torch.bfloat16)
+    print(f"the .pt's model (strict, without its {len(unused)} rmsnorm keys) against the checkpoint: logits "
+          f"bit-equal {torch.equal(got, want_logits)}")
+    check(torch.equal(got, want_logits), "the .pt's model gives other logits than the checkpoint")
+    del model, ref
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"training settings phase: {time.perf_counter() - t_phase:.1f} s of wall time")
+    return runs["bf16 hash"]["counts"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device — this smoke test runs only on the card", file=sys.stderr)
@@ -2382,6 +2726,10 @@ def main() -> int:
         launches[name] = kohonen["served"][name] if name in PATHS["nvit-kohonen"]["forward"] \
             else kohonen["stepped"][name]
     by_path["nvit-kohonen"] = {name: launches[name] for name in PATHS["nvit-kohonen"]["step"]}
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the trainer's settings: one bf16-moment step of nViT-B/16, counted from 0
+    by_path["nvit-bf16-moments"] = settings_phase(smi)
 
     # launches: the flagship paths' (above; the Kohonen flagship's last);
     # path_launches: each full path's own; profile_launches: one step of

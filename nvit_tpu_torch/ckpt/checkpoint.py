@@ -163,9 +163,14 @@ def read_leaves(out_dir: str | Path, name: str, specs: list, meta: dict[str, Any
     return leaves
 
 
-def _state_dict(leaves: list[np.ndarray], model_cfg) -> dict[str, torch.Tensor]:
-    """Leaves in the params' flatten order → a state_dict (torch tensors on the CPU)."""
-    return state_dict_from_jax(unflatten(param_tree(model_cfg), iter(leaves)), model_cfg)
+def state_dict_of_leaves(leaves: list[np.ndarray], model_cfg) -> dict[str, torch.Tensor]:
+    """Leaves in the params' flatten order → a state_dict (torch tensors on
+    the CPU).  bfloat16 leaves, stored as 2-byte void records, cross as their
+    int16 bits (``state_dict_from_jax`` moves layouts only) and come back as
+    bfloat16."""
+    stored = [a.view(np.int16) if a.dtype.kind == "V" else a for a in leaves]
+    sd = state_dict_from_jax(unflatten(param_tree(model_cfg), iter(stored)), model_cfg)
+    return {k: v.view(torch.bfloat16) if v.dtype == torch.int16 else v for k, v in sd.items()}
 
 
 def load_checkpoint(out_dir: str | Path, name: str, state: TrainState) -> tuple[TrainState, dict]:
@@ -178,10 +183,10 @@ def load_checkpoint(out_dir: str | Path, name: str, state: TrainState) -> tuple[
     specs = train_state_specs(dataclasses.replace(cfg, model=model_cfg))
     leaves = read_leaves(out_dir, name, specs, meta, len(specs))
     n = len(flatten(param_tree(model_cfg)))
-    state.model.load_state_dict(_state_dict(leaves[:n], model_cfg), strict=True)
+    state.model.load_state_dict(state_dict_of_leaves(leaves[:n], model_cfg), strict=True)
     opt = state.opt_state
     for moments, part in ((opt.mu, leaves[n + 1:2 * n + 1]), (opt.nu, leaves[2 * n + 1:3 * n + 1])):
-        sd = _state_dict(part, model_cfg)
+        sd = state_dict_of_leaves(part, model_cfg)
         for key, value in moments.items():  # the maps' buffers have no moments
             value.copy_(sd[key])
     state.opt_state = FusedAdamWState(count=int(leaves[n]), mu=opt.mu, nu=opt.nu)
@@ -218,4 +223,4 @@ def restore_params(out_dir: str | Path, name: str) -> tuple[dict[str, torch.Tens
     """(state_dict on the CPU, Config, meta): the parameters alone — no
     moment is read and no optimizer built (``Predictor.from_checkpoint``)."""
     leaves, cfg, meta = read_params(out_dir, name)
-    return _state_dict(leaves, cfg.model), cfg, meta
+    return state_dict_of_leaves(leaves, cfg.model), cfg, meta

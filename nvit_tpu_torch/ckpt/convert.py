@@ -32,6 +32,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from nvit_tpu_torch.ckpt.tree import Spec, flatten, param_tree
 from nvit_tpu_torch.configs import ViTConfig
 from nvit_tpu_torch.models.patch import global_embed_permutation
 from nvit_tpu_torch.models.vit import kohonen_spec
@@ -106,71 +107,82 @@ def state_dict_from_jax(params: Mapping[str, Any], cfg: ViTConfig) -> dict[str, 
     return sd
 
 
+# the Sequential members whose parameters sit one level up in the JAX tree
+_SEQUENTIAL = {"mlp_head.0": "head_norm", "mlp_head.1": "head",
+               "reconstruction_head.0": "reconstruction_head", "global_patch_embed.1": "global_patch_embed"}
+# norms whose weight is the JAX leaf itself, not a {"w": …} dict
+_NORMS = ("rmsnorm_att", "rmsnorm_mlp", "local_norm", "global_norm")
+_LEAF = {"weight": "w", "bias": "b"}
+
+
+def jax_path(name: str) -> tuple:
+    """The path in ``init_vit``'s tree (dict keys, list indices) of the
+    ``ViT`` parameter ``name``: ``transformer.h.3.c_fc.weight`` →
+    ``("blocks", 3, "c_fc", "w")``, ``mlp_head.0.weight`` → ``("head_norm",
+    "w")``, ``cross_attention.local_norm.weight`` → ``("cross_attention",
+    "local_norm")``."""
+    parts = name.split(".")
+    path: list = []
+    if parts[:2] == ["transformer", "h"]:
+        path, parts = ["blocks", int(parts[2])], parts[3:]
+    if ".".join(parts[:2]) in _SEQUENTIAL:
+        parts = [_SEQUENTIAL[".".join(parts[:2])], *parts[2:]]
+    if len(parts) > 1 and parts[-2] in _NORMS:
+        parts = parts[:-1]
+    elif parts[-1] in _LEAF:
+        parts[-1] = _LEAF[parts[-1]]
+    return (*path, *parts)
+
+
+def jax_order(name: str, t: torch.Tensor, local_patch: int) -> torch.Tensor:
+    """A view of ``t`` — the ``ViT`` parameter ``name``, or a tensor in its
+    layout (a gradient, a moment) — whose row-major element order is that of
+    the JAX leaf: linear weights transposed to ``[in, out]``, the patch
+    embeds' fan-in first, the global one's in the 2×2-block-major order of
+    ``global_embed_permutation`` (``local_patch`` is its stride).  Writing
+    through the view writes ``t``."""
+    if name == "local_patch_embed.weight":
+        return t.reshape(t.shape[0], -1).T
+    if name == "global_patch_embed.1.weight":
+        d, c, k = t.shape[:3]
+        s = local_patch
+        if k == 2 * s:  # features (i, j, C, ph, pw) of the kernel row i·s + ph, column j·s + pw
+            return t.view(d, c, 2, s, 2, s).permute(2, 4, 1, 3, 5, 0)
+        return t.reshape(d, -1).T
+    if t.dim() == 2 and name.endswith(".weight"):
+        return t.T
+    return t
+
+
 def _host(t: torch.Tensor) -> np.ndarray:
     """A contiguous host copy that shares no memory with ``t``: the fused
-    update rewrites parameters and moments in place."""
+    update rewrites parameters and moments in place.  bfloat16 (the moments
+    under ``optimizer.moments_dtype="bfloat16"``) comes out as the 2-byte
+    void records numpy writes for ``ml_dtypes.bfloat16``, the JAX package's
+    npz form of those leaves."""
     out = torch.empty(t.shape, dtype=t.dtype, device="cpu")
     out.copy_(t.detach())
+    if out.dtype == torch.bfloat16:
+        return out.view(torch.int16).numpy().view("V2")
     return out.numpy()
-
-
-def _jax_linear(sd: Mapping[str, torch.Tensor], prefix: str) -> dict[str, np.ndarray]:
-    p = {"w": _host(sd[f"{prefix}.weight"].T)}
-    if f"{prefix}.bias" in sd:
-        p["b"] = _host(sd[f"{prefix}.bias"])
-    return p
 
 
 def jax_params_from_state_dict(sd: Mapping[str, torch.Tensor], cfg: ViTConfig) -> dict[str, Any]:
     """The inverse of ``state_dict_from_jax``: a ``ViT.state_dict()`` (or a
-    moment dict with its keys) → ``init_vit``'s tree with numpy leaves, each a
-    copy: linear weights back to ``[in, out]``, the patch embeds to their
-    ``[C·k·k, d]`` matrices, the global one's fan-in onto the 2×2-block-major
-    order of ``global_embed_permutation``."""
-    cfg.validate()
-    d = cfg.n_embd
-    perm = torch.from_numpy(global_embed_permutation(cfg.channels, cfg.global_patch_size,
-                                                     cfg.local_patch_size))
-    gw = sd["global_patch_embed.1.weight"]
-    params: dict[str, Any] = {
-        "local_patch_embed": {"w": _host(sd["local_patch_embed.weight"].reshape(d, -1).T),
-                              "b": _host(sd["local_patch_embed.bias"])},
-        "global_patch_embed": {"w": _host(gw.reshape(d, -1)[:, perm.to(gw.device)].T),
-                               "b": _host(sd["global_patch_embed.1.bias"])},
-        "local_pos_embed": _host(sd["local_pos_embed"]),
-        "global_pos_embed": _host(sd["global_pos_embed"]),
-        "reconstruction_head": _jax_linear(sd, "reconstruction_head.0"),
-        "head_norm": {"w": _host(sd["mlp_head.0.weight"]), "b": _host(sd["mlp_head.0.bias"])},
-        "head": _jax_linear(sd, "mlp_head.1"),
-    }
-    ca = {name: _jax_linear(sd, f"cross_attention.{name}")
-          for name in ("q_local", "k_global", "v_global", "proj", "out_proj")}
-    if cfg.use_nvit:
-        ca.update(attn_alpha=_host(sd["cross_attention.attn_alpha"]),
-                  sqk=_host(sd["cross_attention.sqk"]))
-    else:
-        ca.update(local_norm=_host(sd["cross_attention.local_norm.weight"]),
-                  global_norm=_host(sd["cross_attention.global_norm.weight"]))
-    params["cross_attention"] = ca
-
-    blocks = []
-    for i in range(cfg.n_layer):
-        prefix = f"transformer.h.{i}"
-        blk = {name: _jax_linear(sd, f"{prefix}.{name}")
-               for name in ("query", "key", "value", "att_c_proj", "c_fc", "mlp_c_proj")}
-        blk["skip_param"] = _host(sd[f"{prefix}.skip_param"])
-        if cfg.use_nvit:
-            blk.update({name: _host(sd[f"{prefix}.{name}"])
-                        for name in ("attn_alpha", "mlp_alpha", "sqk", "suv")})
-        else:
-            blk.update({name: _host(sd[f"{prefix}.{name}.weight"])
-                        for name in ("rmsnorm_att", "rmsnorm_mlp")})
-        blocks.append(blk)
-    params["blocks"] = blocks
-    if cfg.use_kohonen:
-        params["map_balance"] = _host(sd["map_balance"])
-        for name in ("local_kohonen", "global_kohonen"):
-            params[name] = {"nodes": _host(sd[f"{name}.nodes"])}
-    if cfg.use_nvit:
-        params["sz"] = _host(sd["sz"])
-    return params
+    moment dict with its keys) → ``init_vit``'s tree with numpy leaves, each
+    a host copy in its JAX layout (``jax_order``: linear weights back to
+    ``[in, out]``, the patch embeds to their ``[C·k·k, d]`` matrices, the
+    global one's fan-in in the 2×2-block-major order)."""
+    tree = param_tree(cfg)
+    for name, t in sd.items():
+        if name.endswith((".locations", ".offsets")):  # the maps' grid buffers have no leaf
+            continue
+        *parent, leaf = jax_path(name)
+        node = tree
+        for key in parent:
+            node = node[key]
+        node[leaf] = _host(jax_order(name, t, cfg.local_patch_size)).reshape(node[leaf].shape)
+    missing = [path for path, x in flatten(tree) if isinstance(x, Spec)]
+    if missing:
+        raise KeyError(f"no tensor for the JAX leaves {missing[:4]}")
+    return tree

@@ -26,9 +26,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from nvit_tpu_torch.ckpt.checkpoint import read_params, write_files
-from nvit_tpu_torch.ckpt.convert import state_dict_from_jax
-from nvit_tpu_torch.ckpt.tree import flatten, param_tree, unflatten
+from nvit_tpu_torch.ckpt.checkpoint import read_params, state_dict_of_leaves, write_files
+from nvit_tpu_torch.ckpt.tree import flatten, param_tree
 from nvit_tpu_torch.configs import ViTConfig, merge_dataclass
 
 EXPORT_FORMAT = "nvit_tpu.ckpt.export.v1"
@@ -83,10 +82,7 @@ def load_export(dest: str | Path, name: str) -> tuple[dict[str, torch.Tensor], V
     for (path, spec), a in zip(specs, stored):
         if a.shape != spec.shape or (a.dtype.kind == "V" and a.dtype.itemsize != 2):
             raise ValueError(f"export leaf {path} is {a.dtype} {a.shape}, expected {spec.shape}")
-    # bf16 leaves cross as their int16 bits: state_dict_from_jax moves layouts only
-    stored = [a.view(np.int16) if a.dtype.kind == "V" else a for a in stored]
-    sd = state_dict_from_jax(unflatten(param_tree(model_cfg), iter(stored)), model_cfg)
-    return {k: v.view(torch.bfloat16) if v.dtype == torch.int16 else v for k, v in sd.items()}, model_cfg
+    return state_dict_of_leaves(stored, model_cfg), model_cfg
 
 
 def main(argv=None) -> None:

@@ -127,8 +127,10 @@ def train_state_specs(cfg: Config) -> list[tuple[Path, Spec]]:
 _M32 = 0xFFFFFFFF
 
 
-def _threefry2x32(key: tuple[int, int], count: tuple[int, int]) -> tuple[int, int]:
-    """Threefry-2x32 with 20 rounds (Salmon et al. 2011), as ``jax.random`` applies it."""
+def threefry2x32(key: tuple, count: tuple) -> tuple:
+    """Threefry-2x32 with 20 rounds (Salmon et al. 2011), as ``jax.random``
+    applies it.  Each word is an int or an int64 tensor of uint32 values
+    (the tensor case runs one threefry per element)."""
     ks = (key[0], key[1], key[0] ^ key[1] ^ 0x1BD11BDA)
     rotations = ((13, 15, 26, 6), (17, 29, 16, 24))
     x0, x1 = (count[0] + ks[0]) & _M32, (count[1] + ks[1]) & _M32
@@ -136,7 +138,7 @@ def _threefry2x32(key: tuple[int, int], count: tuple[int, int]) -> tuple[int, in
         for r in rotations[i % 2]:
             x0 = (x0 + x1) & _M32
             x1 = ((x1 << r) | (x1 >> (32 - r))) & _M32
-            x1 ^= x0
+            x1 = x1 ^ x0
         x0 = (x0 + ks[(i + 1) % 3]) & _M32
         x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M32
     return x0, x1
@@ -146,4 +148,4 @@ def run_key(seed: int) -> np.ndarray:
     """``jax.random.split(jax.random.PRNGKey(seed))[1]`` → uint32 [2].  The
     key of a seed is (0, seed mod 2³²), as without JAX's 64-bit mode; row i
     of the (partitionable) split is threefry(key, (0, i))."""
-    return np.array(_threefry2x32((0, seed & _M32), (0, 1)), dtype=np.uint32)
+    return np.array(threefry2x32((0, seed & _M32), (0, 1)), dtype=np.uint32)

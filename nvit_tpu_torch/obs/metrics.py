@@ -1,9 +1,12 @@
 """Observability (≙ nvit_tpu/obs/metrics.py): console/logfile logging, the
-JSONL metric sink, the nViT ``out/stat`` file, the step timer with MFU, and
-device memory stats from ``torch.cuda``.
+JSONL metric sink with its wandb mirror, the nViT ``out/stat`` file, the step
+timer with MFU, and device memory stats from ``torch.cuda``.
 
-wandb is not ported: ``MetricsWriter`` raises unless its mode is
-``disabled``.
+The wandb mirror (``wandb.mode`` online or offline) logs in with
+``get_secret("WANDB_API_KEY")`` when online, and renders ``gradhist/*``
+counts as ``wandb.Histogram``s over the static edges.  Where the package is
+absent or its init fails, the writer logs one warning and keeps the JSONL
+sink alone, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -16,9 +19,10 @@ import time
 from pathlib import Path
 from typing import Any
 
+import numpy as np
 import torch
 
-from nvit_tpu_torch.configs import Config
+from nvit_tpu_torch.configs import Config, get_secret
 from nvit_tpu_torch.models.blocks import (
     ATTN_ALPHA_INIT_VALUE,
     MLP_ALPHA_INIT_VALUE,
@@ -26,6 +30,11 @@ from nvit_tpu_torch.models.blocks import (
     SUV_INIT_SCALING,
     SUV_INIT_VALUE,
 )
+from nvit_tpu_torch.obs.grad_hist import histogram_edges
+
+# the gradhist edges with finite ends, as wandb needs them
+_EDGES = histogram_edges()
+WANDB_HIST_EDGES = np.concatenate([[0.0], _EDGES[1:-1], [_EDGES[-2] * 2]])
 
 
 def setup_logging(out_dir: str | Path, *, level: str = "INFO", to_file: bool = True) -> logging.Logger:
@@ -45,17 +54,28 @@ def setup_logging(out_dir: str | Path, *, level: str = "INFO", to_file: bool = T
 
 class MetricsWriter:
     """Grouped metric logging to ``out_dir/metrics.jsonl``, one JSON object
-    per call (≙ metrics.py:MetricsWriter without its wandb mirror)."""
+    per call, mirrored to wandb when ``wandb_mode`` is online or offline and
+    wandb starts (≙ metrics.py:MetricsWriter)."""
 
-    def __init__(self, out_dir: str | Path, wandb_mode: str = "disabled"):
-        if wandb_mode != "disabled":
-            raise NotImplementedError(
-                f"wandb.mode={wandb_mode!r}: the wandb sink is not ported yet (ROADMAP.md, "
-                "'wandb'); set wandb.mode=disabled"
-            )
+    def __init__(self, out_dir: str | Path, wandb_mode: str = "disabled", run_name: str = "nvit",
+                 project: str = "nvit", config: dict | None = None):
         self.path = Path(out_dir) / "metrics.jsonl"
         self.path.parent.mkdir(parents=True, exist_ok=True)
         self._fh = open(self.path, "a")
+        self.wandb = None
+        if wandb_mode in ("online", "offline"):
+            try:
+                import wandb  # type: ignore
+
+                api_key = get_secret("WANDB_API_KEY")
+                if api_key and wandb_mode == "online":
+                    wandb.login(key=api_key)
+                wandb.init(mode=wandb_mode, project=project,
+                           name=f"{run_name}_{time.strftime('%Y%m%d_%H%M%S')}", config=config or {})
+                self.wandb = wandb
+            except Exception as e:  # not installed, no network: the JSONL sink alone
+                logging.getLogger("nvit_tpu_torch").warning(
+                    "wandb unavailable (%s: %s); metrics go to %s", type(e).__name__, e, self.path)
 
     def log(self, metrics: dict[str, Any], step: int | None = None) -> None:
         clean = {k: (v.item() if hasattr(v, "item") else v) for k, v in metrics.items()}
@@ -63,9 +83,23 @@ class MetricsWriter:
             clean["_step"] = int(step)
         self._fh.write(json.dumps(clean) + "\n")
         self._fh.flush()
+        if self.wandb is not None:
+            out = dict(metrics)
+            for k, v in metrics.items():
+                # gradhist/* are bin counts over the static log2 edges:
+                # wandb histograms (≙ wandb.watch, train.py:531-546)
+                if k.startswith("gradhist/"):
+                    try:
+                        out[k] = self.wandb.Histogram(
+                            np_histogram=(np.asarray(v, dtype=np.int64), WANDB_HIST_EDGES))
+                    except Exception:  # keep the raw list: the sink never breaks the run
+                        pass
+            self.wandb.log(out, step=step)
 
     def finish(self) -> None:
         self._fh.close()
+        if self.wandb is not None:
+            self.wandb.finish()
 
 
 def hparams_str(model: torch.nn.Module, cfg: Config) -> str:

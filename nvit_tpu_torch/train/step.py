@@ -9,6 +9,14 @@ and the sum is divided by the count (≙ the JAX ``lax.scan``, :99-134); the
 Hebbian deltas, each computed against the pre-step nodes, are summed and not
 divided.  No GradScaler: bf16 needs no loss scaling.  PyTorch runs eagerly,
 so there is no jit and no mesh.
+
+``log_histograms`` gives the step variant that adds every gradient's
+``gradhist/<JAX path>`` counts (``obs/grad_hist.py``, ≙ :162-165), which
+the Trainer runs only on the step that feeds an eval.  Under
+``system.debug_nans`` the step raises ``FloatingPointError`` naming the
+first non-finite tensor: the loss and the gradients before the update,
+the updated parameters after it (``obs/profiling.check_finite``, one host
+sync each).
 """
 
 from __future__ import annotations
@@ -21,6 +29,8 @@ from nvit_tpu_torch.configs import Config
 from nvit_tpu_torch.models.losses import topk_accuracy
 from nvit_tpu_torch.models.schedules import cosine_lr
 from nvit_tpu_torch.models.vit import total_loss
+from nvit_tpu_torch.obs.grad_hist import tree_grad_histograms
+from nvit_tpu_torch.obs.profiling import check_finite
 from nvit_tpu_torch.train.optim import fused_adamw_renorm_update, global_norm
 from nvit_tpu_torch.train.state import TrainState, compute_dtype_of
 
@@ -56,13 +66,14 @@ HEBBIAN_DELTAS = {"local_delta": "local_kohonen.nodes", "global_delta": "global_
 
 
 def make_train_step(
-    cfg: Config, log_norms: bool | None = None
+    cfg: Config, log_norms: bool | None = None, log_histograms: bool = False
 ) -> Callable[[TrainState, torch.Tensor, torch.Tensor], tuple[TrainState, Metrics]]:
     """(state, images, labels) → (state, metrics); the state is updated in place.
 
     ``images``: [B, C, H, W] fp32 (normalized); ``labels``: [B] int.  With
     gradient_accumulation_steps = k, B must divide by k.  ``log_norms``
-    overrides ``cfg.system.log_gpu_stats`` for the grad/param norm metrics.
+    overrides ``cfg.system.log_gpu_stats`` for the grad/param norm metrics;
+    ``log_histograms`` adds the gradients' ``gradhist/*`` int32[64] counts.
     ``system.remat`` recomputes the blocks' activations in the backward
     (``models/vit.py``)."""
     accum = max(1, cfg.training.gradient_accumulation_steps)
@@ -93,14 +104,21 @@ def make_train_step(
             grads = {n: g / accum for n, g in grads.items()}
             terms = {k: v / accum for k, v in terms.items()}
 
+        if cfg.system.debug_nans:
+            check_finite([("the loss", terms["total_loss"]), *((f"the gradient of {n}", g)
+                                                                for n, g in grads.items())])
         state.opt_state = fused_adamw_renorm_update(
             cfg.optimizer, params, grads, state.opt_state, renorm=cfg.model.use_nvit)
         with torch.no_grad():
             for key, delta in deltas.items():
                 nodes = params[HEBBIAN_DELTAS[key]]
                 nodes.copy_(nodes + delta.to(nodes.dtype))
+        if cfg.system.debug_nans:
+            check_finite((f"the updated {n}", p) for n, p in params.items())
         metrics: Metrics = dict(terms)
         metrics["learning_rate"] = cosine_lr(cfg.optimizer, state.step)
+        if log_histograms:
+            metrics.update(tree_grad_histograms(grads, cfg.model.local_patch_size))
         if want_norms:
             with torch.no_grad():
                 metrics["grad_norm"] = global_norm(grads.values())

@@ -38,11 +38,24 @@ protocol:
   save.  ``cleanup()`` puts back the handlers ``train()`` found, so a
   finished Trainer holds no process-wide state and can be freed.
 
-Not ported yet, and refused at construction with ``NotImplementedError``
-naming the ROADMAP.md item, never skipped silently: wandb (and
-``init_from="wandb"``); bf16 moments; more than one device; gradient
-histograms, profiling and the NaN sanitizer; orbax checkpoints (on ROADMAP.md's do-not-port list).  One process loads
-the data, so ``data.download`` needs no master gating.  ``jit``, ``compile``,
+Observability (≙ trainer.py:254-261, :558-609, :768-774, :880-911):
+``wandb.mode`` online or offline mirrors ``metrics.jsonl`` to wandb (the
+JSONL sink alone, with one warning, where wandb is absent), and with
+``wandb.save_artifacts`` every ``checkpoint_best`` is logged as a model
+artifact (the previous version deleted); ``init_from="wandb"`` resumes from
+the ``checkpoint_best`` of ``wandb.artifact_name`` (online only);
+``system.log_grad_histograms`` runs the histogram step variant on the step
+that feeds an eval (never the one that reaches ``max_iters``) and logs its
+``gradhist/*`` counts at that eval; ``system.profile_steps`` traces steps
+[1, 1 + profile_steps) into ``out_dir/profile`` (``obs/profiling.py``);
+``system.debug_nans`` raises ``FloatingPointError`` on a non-finite loss,
+gradient or updated parameter.  ``optimizer.moments_dtype="bfloat16"``
+keeps the moments in bf16 with stochastic rounding (``train/optim.py``).
+
+Refused at construction with ``NotImplementedError``, never skipped
+silently: more than one device (ROADMAP.md, 'multi-GPU'), and orbax
+checkpoints (on ROADMAP.md's do-not-port list).  One process loads the
+data, so ``data.download`` needs no master gating.  ``jit``, ``compile``,
 ``compilation_cache_dir``, ``clear_cache`` and ``backend`` are TPU/XLA
 settings with no PyTorch counterpart and are ignored, and so is
 ``system.use_tqdm``: the JAX trainer's progress bar changes no result.
@@ -80,6 +93,7 @@ from nvit_tpu_torch.obs.metrics import (
     setup_logging,
     write_stat_line,
 )
+from nvit_tpu_torch.obs.profiling import start_trace, stop_trace
 from nvit_tpu_torch.train.state import create_train_state
 from nvit_tpu_torch.train.step import make_eval_step, make_train_step
 
@@ -100,8 +114,8 @@ def device_peak_flops(device: torch.device) -> float | None:
 
 
 def check_ported(cfg: Config, device: torch.device) -> None:
-    """Raise ``NotImplementedError`` for every setting that would take the
-    JAX trainer into a part this port does not have yet."""
+    """Raise ``NotImplementedError`` for the settings the port refuses:
+    several devices (not ported yet) and orbax checkpoints (not to be ported)."""
     t, s, d = cfg.training, cfg.system, cfg.data
     multi_gpu = s.model_parallel > 1 or (
         s.use_ddp and device.type == "cuda" and torch.cuda.device_count() > 1)
@@ -114,20 +128,10 @@ def check_ported(cfg: Config, device: torch.device) -> None:
     if d.checkpoint_backend != "npz":
         raise ValueError(f"checkpoint_backend must be 'npz' or 'orbax', got {d.checkpoint_backend!r}")
     cfg.model.validate()  # before anything is made on the device
-    unported = [
-        (t.init_from == "wandb", "training.init_from='wandb'", "wandb"),
-        (cfg.wandb.mode != "disabled", f"wandb.mode={cfg.wandb.mode!r}", "wandb"),
-        (cfg.optimizer.moments_dtype != "float32",
-         f"optimizer.moments_dtype={cfg.optimizer.moments_dtype!r}", "bf16 moments"),
-        (multi_gpu, "more than one device (system.use_ddp with several cards, model_parallel)",
-         "multi-GPU"),
-        (s.log_grad_histograms, "system.log_grad_histograms", "observability"),
-        (s.profile_steps > 0, "system.profile_steps", "observability"),
-        (s.debug_nans, "system.debug_nans", "observability"),
-    ]
-    for bad, what, item in unported:
-        if bad:
-            raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md, '{item}')")
+    if multi_gpu:
+        raise NotImplementedError(
+            "more than one device (system.use_ddp with several cards, model_parallel) is not "
+            "ported yet (ROADMAP.md, 'multi-GPU')")
 
 
 class Trainer:
@@ -160,12 +164,22 @@ class Trainer:
 
         if cfg.training.init_from == "scratch":
             self.state = create_train_state(cfg, device=self.device)
+        elif cfg.training.init_from == "wandb":
+            self._resume(*self._download_wandb_artifact(cfg.wandb.artifact_name))
+            cfg = self.cfg
         else:
             self._resume(cfg.data.checkpoint_dir, cfg.data.checkpoint_file.removesuffix(".npz"))
             cfg = self.cfg
         self._train_step = make_train_step(cfg, log_norms=False)
         self._train_step_norms = (make_train_step(cfg, log_norms=True)
                                   if cfg.system.log_gpu_stats else self._train_step)
+        # the eval-cadence variant: + per-tensor gradient histograms
+        self._train_step_hist = (make_train_step(cfg, log_norms=cfg.system.log_gpu_stats,
+                                                 log_histograms=True)
+                                 if cfg.system.log_grad_histograms else None)
+        self._pending_grad_hists: dict[str, torch.Tensor] | None = None
+        self._trace = None  # the profiler of the profile_steps window while it runs
+        self._last_artifact: str | None = None
         self._eval_step = make_eval_step(cfg)
 
         self._pending_saves: list = []
@@ -207,6 +221,20 @@ class Trainer:
         self._eval_count = int(tmeta.get("eval_count", 0))
         self.logger.info("Resumed from iteration %d (best_val_loss=%s, patience=%d)",
                          self.iter_num, self.best_val_loss, self.early_stopping_counter)
+
+    def _download_wandb_artifact(self, artifact_name: str) -> tuple[str, str]:
+        """init_from="wandb": download the model artifact → (its directory,
+        "checkpoint_best") (≙ trainer.py:302-316); online wandb only."""
+        if self.cfg.wandb.mode != "online":
+            raise ValueError("Wandb must be enabled and online to load from artifacts")
+        try:
+            import wandb  # type: ignore
+        except ImportError as e:
+            raise ValueError("init_from='wandb' requires the wandb package") from e
+        artifact_dir = wandb.Api().artifact(artifact_name, type="model").download()
+        if not (Path(artifact_dir) / "checkpoint_best.npz").exists():
+            raise FileNotFoundError(f"Checkpoint not found in artifact: {artifact_dir}")
+        return artifact_dir, "checkpoint_best"
 
     # ------------------------------------------------------------------ data
     def _load_data(self) -> None:
@@ -289,7 +317,9 @@ class Trainer:
             if len(self.trainset) < tc.batch_size:
                 raise ValueError(f"training dataset ({len(self.trainset)} examples) is smaller "
                                  f"than one batch ({tc.batch_size})")
-            self.metrics_writer = MetricsWriter(self.out_dir, wandb_mode=cfg.wandb.mode)
+            self.metrics_writer = MetricsWriter(self.out_dir, wandb_mode=cfg.wandb.mode,
+                                                run_name=cfg.wandb.run_name, project=cfg.wandb.project,
+                                                config=cfg.to_dict())
             if tc.init_from == "resume" and not self._sentinel_allows_resume():
                 self.logger.info("finished sentinel present; not relaunching")
                 return
@@ -318,10 +348,20 @@ class Trainer:
                                         lr=float(cosine_lr(cfg.optimizer, self.iter_num)),
                                         train_loss=ev["train/loss"], val_loss=ev["val/loss"],
                                         model=self.state.model, cfg=cfg)
+                    # trace steps [1, 1 + profile_steps): step 0 warms up
+                    if cfg.system.profile_steps > 0 and local_iter == 1:
+                        self._trace = start_trace(self.out_dir, self.device)
                     images = self._preprocess(imgs_u8, train=True)
                     # the norms variant only on iterations whose metrics are logged
                     step_fn = (self._train_step_norms if (self.iter_num + 1) % tc.log_interval == 0
                                else self._train_step)
+                    # the histogram variant on the step feeding an eval, whose
+                    # evaluate() logs the counts; not on the step reaching
+                    # max_iters, which leaves the loop before that eval
+                    if (self._train_step_hist is not None
+                            and (self.iter_num + 1) % tc.eval_interval == 0
+                            and self.iter_num + 1 < tc.max_iters):
+                        step_fn = self._train_step_hist
                     # the step rewrites the state in place: a signal handler
                     # that fires meanwhile defers to the boundary below
                     self._in_step = True
@@ -329,6 +369,12 @@ class Trainer:
                     self._in_step = False
                     self.iter_num += 1
                     local_iter += 1
+                    hists = {k: step_metrics.pop(k) for k in list(step_metrics) if k.startswith("gradhist/")}
+                    if hists:
+                        self._pending_grad_hists = hists
+                    if self._trace is not None and local_iter == 1 + cfg.system.profile_steps:
+                        float(step_metrics["total_loss"])  # the window's device work, all in the trace
+                        self._stop_trace()
                     if self._deferred_signal is not None:
                         self.logger.info("Handling deferred signal %s at step boundary",
                                          self._deferred_signal)
@@ -465,6 +511,10 @@ class Trainer:
             "training/global_step": self.iter_num,
             **self._sqk_drift_metrics(),
         }
+        if self._pending_grad_hists:
+            # from the histogram step just before: one transfer for all the counts
+            hists, self._pending_grad_hists = self._pending_grad_hists, None
+            metrics.update(zip(hists, torch.stack(list(hists.values())).cpu().tolist()))
         self.last_metrics = dict(metrics)
         self.metrics_writer.log(metrics, step=self.iter_num)
         # strict improvement, read before _should_stop_early updates the best
@@ -525,6 +575,34 @@ class Trainer:
         """checkpoint_best, from evaluate() on a strict improvement only."""
         self._join_pending_saves()
         self._save_one("checkpoint_best", metrics)
+        self._maybe_log_artifact()
+
+    def _maybe_log_artifact(self) -> None:
+        """checkpoint_best as a wandb model artifact, the previous version
+        deleted (≙ trainer.py:880-911); nothing without wandb."""
+        mw = self.metrics_writer
+        if mw is None or mw.wandb is None or not self.cfg.wandb.save_artifacts:
+            return
+        self._join_pending_saves()  # the artifact reads the files
+        wandb = mw.wandb
+        kind = "nvit" if self.cfg.model.use_nvit else "vit"
+        name = f"model-{self.cfg.wandb.run_name}-{kind}-{time.strftime('%d_%m_%Y-%Hh%Mm')}"
+        try:
+            artifact = wandb.Artifact(name=name, type="model", metadata={
+                "iter_num": self.iter_num, "metrics": self.last_metrics,
+                "using_nvit": self.cfg.model.use_nvit})
+            artifact.add_file(str(self.out_dir / "checkpoint_best.npz"))
+            artifact.add_file(str(self.out_dir / "checkpoint_best.json"))
+            wandb.log_artifact(artifact)
+            if self._last_artifact:
+                try:
+                    wandb.Api().artifact(
+                        f"{wandb.run.entity}/{wandb.run.project}/{self._last_artifact}").delete()
+                except Exception as e:  # the new version is logged; the old one may stay
+                    self.logger.info("Failed to delete old artifact: %s", e)
+            self._last_artifact = name
+        except Exception as e:  # the sink never stops the run
+            self.logger.warning("artifact logging failed: %s", e)
 
     def mark_training_finished(self, reason: str = "early_stop") -> None:
         """The relaunch protocol's sentinel (≙ trainer.py:mark_training_finished):
@@ -571,6 +649,11 @@ class Trainer:
         for signum, handler in (prev or {}).items():
             signal.signal(signum, handler)
 
+    def _stop_trace(self) -> None:
+        trace, self._trace = self._trace, None
+        if trace is not None:
+            stop_trace(trace)
+
     def cleanup(self) -> None:
         """The final checkpoint_latest, the pending writes, the sinks (≙
         trainer.py:976-1013).  checkpoint_best is evaluate()'s alone.  Runs
@@ -580,6 +663,7 @@ class Trainer:
             return
         self._cleaned = True
         try:
+            self._stop_trace()  # a run that ended inside the window
             if not self._skip_final_save and self.iter_num > 0:
                 self.save(self.last_metrics)
             self._join_pending_saves()  # do not exit while a write is in flight

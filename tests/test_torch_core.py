@@ -384,13 +384,6 @@ def test_fused_adamw_renorm_update_matches_jax(clip):
     torch.testing.assert_close(w.norm(dim=0), torch.ones(w.shape[1]))
 
 
-def test_bf16_moments_are_not_ported():
-    from nvit_tpu_torch.train.optim import init_fused_adamw
-
-    with pytest.raises(NotImplementedError, match="bf16 moments"):
-        init_fused_adamw([], "bfloat16")
-
-
 def test_num_params_and_flops_model_match_jax():
     from nvit_tpu.models.vit import estimate_flops_per_iter as jax_flops
     from nvit_tpu.models.vit import num_params as jax_num_params
