@@ -144,6 +144,23 @@ then this slice's path:
                nvit_tpu_torch.ckpt.torch_interop`` export then import
                (params and moments bit-equal, the .pt's model strict-loaded
                without its 24 rmsnorm keys giving the checkpoint's logits).
+14. serving modes — nViT-B/16 as a training checkpoint (random weights):
+               int8 w8a8 (``Predictor(quantize="int8")``) over HTTP at batches
+               1, 4 and 32, K1 and the prologue 13 times a forward and K3
+               never (the int8 gated projection is unfused), against bf16
+               serving (mean |Δp| < 0.02, logits relative L2 < 0.08, the JAX
+               package's bounds); the batch-32 forward int8 against bf16 (CUDA
+               events, host clock, device time by group); the int8 export
+               (MB, seconds) and ``from_export`` bit-equal to the in-memory
+               quantization; AOT artifacts (``ckpt/aot.py``) pinned at 32,
+               bf16 (K1, the prologue, K3 13 times a forward) and int8 (K1,
+               the prologue), and one symbolic (the plain path, batches 1, 4,
+               32; no kernel), each within rtol 1e-4 / atol 1e-6 of
+               Predictor, with export and load seconds, size and forward ms;
+               ``python -m nvit_tpu_torch.serve --aot`` answering one request
+               and draining; ``serve_bench`` at 8 clients × 4 requests, the
+               batch window off and on, bf16 and int8; ``debug_model()`` on
+               the packaged settings (its kernels once a pass, two PNGs).
 
 K9 is not on any main path (T = 784 ≤ 1024 takes K8), nor is K10 (only the
 bench runs it), so their launch counts in the summary are 0 per training
@@ -151,8 +168,10 @@ step; the kernels phase checks both, the bench phase runs K10 (its count
 there is the summary's ``bench_launches``) and the times phases time both.
 The line before the last is a JSON summary of the kernels (``launches``
 from the last full path that runs each, the Kohonen flagship's for K1–K4
-and the prologue; ``path_launches`` per full path and per step of phase
-13's bf16-moment step; ``profile_launches`` per profile); the last line is
+and the prologue; ``path_launches`` per full path, per step of phase 13's
+bf16-moment step, and per forward of phase 14's modes — ``int8``,
+``aot-32``, ``aot-32-int8``, ``aot-symbolic`` — and the debug CLI's
+forward; ``profile_launches`` per profile); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -2639,6 +2658,219 @@ def settings_phase(smi: str) -> dict:
     return runs["bf16 hash"]["counts"]
 
 
+# the serving-modes phase: int8 w8a8, AOT artifacts, serve --aot, serve_bench, the debug CLI
+INT8_MEAN_DP = 0.02  # mean |Δp| of int8 against bf16 serving (≙ tests/test_quant.py:163)
+INT8_LOGIT_REL = 0.08  # relative L2 of int8 logits against bf16's (≙ tests/test_quant.py:122)
+AOT_TOL = dict(rtol=1e-4, atol=1e-6)  # an AOT artifact's probabilities against Predictor's
+AOT_BATCH = 32
+SERVE_FORWARDS = 3  # /predict at batches 1, 4 and 32
+INT8_FORWARD = ("qknorm_attn_fwd", "qknorm_project")  # the int8 gated projection is unfused: no K3
+
+
+def modes_forward_names(m) -> tuple:
+    """The kernels one served forward of model config ``m`` launches, once a pass."""
+    from nvit_tpu_torch.models.blocks import use_mlp_kernel
+
+    arm = {"rowmax": "", "bounded": "_bounded", "auto": "_auto"}[m.bounded_softmax]
+    names = (f"qknorm_attn_fwd{arm}", "qknorm_project") if m.use_nvit else ("flash_attn_fwd",)
+    if use_mlp_kernel(m):
+        names += ("gated_mlp_fwd_bias" if m.bias else "gated_mlp_fwd",)
+    return names
+
+
+def serving_modes_phase(smi: str) -> dict:
+    """nViT-B/16 (flagship_config(), random weights from a seed, as a training
+    checkpoint): int8 served over HTTP at batches 1, 4 and 32 against bf16
+    serving; the int8 forward's time and its GEMM / elementwise split; the
+    int8 export and ``from_export`` bit-equal to the in-memory quantization;
+    AOT artifacts pinned at 32 (bf16, int8) and one symbolic, against
+    Predictor, with their launches counted; ``serve --aot`` answering a
+    request; ``serve_bench`` at 8 clients × 4 requests, bf16 and int8; the
+    debug CLI on the packaged settings → launches per forward, per mode."""
+    import os
+    import shutil
+    import tempfile
+    from http.server import ThreadingHTTPServer
+
+    from nvit_tpu_torch.ckpt.aot import export_aot, load_aot
+    from nvit_tpu_torch.ckpt.checkpoint import restore_params, save_checkpoint
+    from nvit_tpu_torch.ckpt.export import export_for_inference
+    from nvit_tpu_torch.configs import load_config
+    from nvit_tpu_torch.data.augment import normalize
+    from nvit_tpu_torch.debug import debug_model
+    from nvit_tpu_torch.infer import Predictor
+    from nvit_tpu_torch.models.presets import flagship_config
+    from nvit_tpu_torch.obs.profile_step import profile, report
+    from nvit_tpu_torch.scripts import serve_bench
+    from nvit_tpu_torch.serve import InferenceService, make_handler
+    from nvit_tpu_torch.train.state import create_train_state
+
+    phase("serving modes nViT-B/16: int8 w8a8, AOT artifacts, serve --aot, serve_bench, the debug CLI")
+    t_phase = time.perf_counter()
+    cfg = flagship_config()
+    m = cfg.model
+    passes = n_passes(m)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_serving_"))
+    rng = np.random.default_rng(14)
+    images = {b: rng.integers(0, 256, (b, 3, m.image_size, m.image_size), dtype=np.uint8) for b in (1, 4, 32)}
+    by_path = {}
+    try:
+        save_checkpoint(root, "ckpt", create_train_state(cfg, seed=0, device="cuda"), cfg)
+        torch.cuda.empty_cache()
+        ckpt_mb = (root / "ckpt.npz").stat().st_size / 1e6
+        bf16 = Predictor.from_checkpoint(root, "ckpt", device="cuda")
+        int8 = Predictor(bf16.model.state_dict(), m, device="cuda", quantize="int8")
+
+        # int8 over HTTP at batches 1, 4 and 32, against bf16 serving
+        service = InferenceService(int8, max_batch=32)
+        service.warmup()
+        server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(service))
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            reset_counts()
+            answers = {b: post(server.server_address, "/predict",
+                               json.dumps({"images": images[b].tolist(), "top_k": m.num_classes}).encode(),
+                               "application/json") for b in (1, 4, 32)}
+            launches = read_counts()
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+            service.close()
+        print(f"int8 served at batches 1, 4, 32: launches {launches}")
+        check_launches(launches, per_pass(INT8_FORWARD, passes * SERVE_FORWARDS), "serving int8")
+        by_path["int8"] = {k: launches[k] // SERVE_FORWARDS for k in (*INT8_FORWARD, "gated_mlp_fwd")}
+        for b, res in answers.items():
+            probs = np.zeros((b, m.num_classes))
+            np.put_along_axis(probs, np.asarray(res["labels"]), np.asarray(res["probs"]), axis=-1)
+            want = bf16.predict_probs(images[b])
+            x = normalize(torch.from_numpy(images[b]).cuda())
+            with torch.inference_mode():
+                rel = rel_l2(int8.model(x, compute_dtype=torch.bfloat16), bf16.model(x, compute_dtype=torch.bfloat16))
+            dp = float(np.abs(probs - want).mean())
+            top1 = float((probs.argmax(-1) == want.argmax(-1)).mean())
+            print(f"int8 against bf16, batch {b}: mean|Δp| {dp:.3e} (bound {INT8_MEAN_DP}), logits relative L2 "
+                  f"{rel:.4f} (bound {INT8_LOGIT_REL}), top-1 agreement {top1:.3f}, max p {want.max():.4f}")
+            check(np.isfinite(probs).all() and np.allclose(probs.sum(-1), 1.0, atol=1e-4), f"int8 batch {b}: bad probs")
+            check(dp < INT8_MEAN_DP and rel < INT8_LOGIT_REL, f"int8 batch {b} disagrees with bf16 serving")
+
+        # the batch-32 forward, int8 against bf16: host clock, CUDA events, device time by group
+        x32 = normalize(torch.from_numpy(images[32]).cuda())
+        fwd = {name: (lambda p=p: p.model(x32, compute_dtype=torch.bfloat16)) for name, p in (("bf16", bf16), ("int8", int8))}
+        with torch.inference_mode():
+            for name in ("bf16", "int8", "int8", "bf16"):
+                print(f"batch-32 forward {name}: {cuda_ms(fwd[name], iters=10):.3f} ms (CUDA events), "
+                      f"predict_probs {host_ms(lambda p=(bf16 if name == 'bf16' else int8): p.predict_probs(images[32]), 10):.3f} ms "
+                      f"(host clock) [{smi}]")
+            for name in ("bf16", "int8"):
+                report(f"batch-32 forward {name} (torch.profiler, 3 forwards)", *profile(fwd[name], 3))
+
+        # the int8 export, and from_export bit-equal to the in-memory quantization
+        t0 = time.perf_counter()
+        path = export_for_inference(root, "ckpt", root / "deploy", dtype="int8")
+        export_s = time.perf_counter() - t0
+        served = Predictor.from_export(root / "deploy", "ckpt", device="cuda", quantize="int8")
+        a, b = served.model.state_dict(), int8.model.state_dict()
+        differ = [k for k in b if not bit_equal([a[k]], [b[k]])]
+        print(f"int8 export: {path.stat().st_size / 1e6:.1f} MB ({export_s:.1f} s) against the checkpoint's "
+              f"{ckpt_mb:.1f} MB; from_export against the in-memory quantization: {len(b)} tensors, "
+              f"{len(differ)} differ [{smi}]")
+        check(a.keys() == b.keys() and not differ, f"the int8 export's tensors differ: {differ[:4]}")
+        del served, a, b
+        torch.cuda.empty_cache()
+
+        # AOT artifacts: pinned at 32 (bf16, int8) and one symbolic (the plain path)
+        sd, _, _ = restore_params(root, "ckpt")
+        plain = Predictor(sd, dataclasses.replace(m, flash_attn=False), device="cuda")
+        del sd
+        artifacts = (("aot-32", dict(batch=AOT_BATCH), bf16, per_pass(PATHS["nvit"]["forward"], passes)),
+                     ("aot-32-int8", dict(batch=AOT_BATCH, quantize="int8"), int8, per_pass(INT8_FORWARD, passes)),
+                     ("aot-symbolic", {}, plain, {}))
+        for name, kw, ref, want_counts in artifacts:
+            t0 = time.perf_counter()
+            pt2 = export_aot(root, "ckpt", root / name, device="cuda", **kw)
+            export_s = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            art = load_aot(root / name, "ckpt", device="cuda")
+            load_s = time.perf_counter() - t0
+            for bsz in ((AOT_BATCH,) if kw else (1, 4, 32)):
+                reset_counts()
+                got = art.predict_probs(images[bsz])
+                counts = read_counts()
+                want = ref.predict_probs(images[bsz])
+                err = float(np.abs(got - want).max())
+                print(f"{name}: batch {bsz}, max|Δp| against Predictor {err:.3e}, launches {counts}")
+                check_launches(counts, want_counts, f"{name} forward")
+                check(got.shape == want.shape and np.allclose(got, want, **AOT_TOL),
+                      f"{name} disagrees with Predictor at batch {bsz}")
+            by_path[name] = {k: counts[k] for k in ("qknorm_attn_fwd", "qknorm_project", "gated_mlp_fwd")}
+            x = images[AOT_BATCH]
+            ms = {"artifact": [], "Predictor": []}
+            for which in ("artifact", "Predictor", "Predictor", "artifact"):
+                ms[which].append(host_ms(lambda: (art if which == "artifact" else ref).predict_probs(x), 10))
+            print(f"{name}: export {export_s:.1f} s, .pt2 {pt2.stat().st_size / 1e6:.1f} MB, load {load_s:.1f} s; "
+                  f"batch-32 predict_probs {statistics.mean(ms['artifact']):.3f} ms against Predictor's "
+                  f"{statistics.mean(ms['Predictor']):.3f} ms (host clock, two medians of 10 each) [{smi}]")
+            del art
+            torch.cuda.empty_cache()
+        del plain
+
+        # python -m nvit_tpu_torch.serve --aot answering one request
+        t0 = time.perf_counter()
+        srv = Cli(["nvit_tpu_torch.serve", "--aot", "--checkpoint", str(root / "aot-32"), "--name", "ckpt",
+                   "--port", "0"], {}, root, "python -m nvit_tpu_torch.serve --aot")
+        try:
+            port = int(srv.wait_for("serving").rsplit(":", 1)[1])
+            up_s = time.perf_counter() - t0
+            res = post(("127.0.0.1", port), "/predict", images[1][0].tobytes(), "application/octet-stream")
+            want = bf16.predict_probs(images[1])[0]
+            print(f"serve --aot: serving after {up_s:.1f} s; one image → label {res['labels'][0][0]} p "
+                  f"{res['probs'][0][0]:.5f} (bf16 Predictor: {int(want.argmax())}, {want.max():.5f})")
+            check(res["labels"][0][0] == int(want.argmax()) and abs(res["probs"][0][0] - want.max()) <= 1e-3,
+                  "serve --aot answered otherwise than the bf16 Predictor")
+            srv.proc.send_signal(signal.SIGTERM)
+            srv.wait_for("drained; exiting")
+        finally:
+            rc = srv.finish(timeout=60)
+        check(rc == 0, f"serve --aot exited {rc}")
+        del bf16, int8
+        torch.cuda.empty_cache()
+
+        # serve_bench: 8 clients × 4 single-image requests, the window off and on, bf16 and int8
+        for flags in ([], ["--int8"]):
+            lines = serve_bench.main(["--clients", "8", "--requests", "4", *flags])
+            check(len(lines) == 2 and all(x["stats"]["errors"] == 0 and x["stats"]["requests"] == 32 for x in lines),
+                  "serve_bench did not answer every request")
+            torch.cuda.empty_cache()
+        print(f"serve_bench above: flagship_config(), random weights [{smi}]")
+
+        # the debug CLI on the packaged settings (the Kohonen model, 32 px), in this process
+        cwd, saved = os.getcwd(), {k: os.environ.pop(k) for k in list(os.environ) if k.startswith("NVIT_")}
+        os.environ["NVIT_DATA__OUT_DIR"] = str(root / "debug_out")
+        os.chdir(root)
+        try:
+            dm = load_config().model
+            reset_counts()
+            out = debug_model()
+            counts = read_counts()
+        finally:
+            os.chdir(cwd)
+            os.environ.pop("NVIT_DATA__OUT_DIR")
+            os.environ.update(saved)
+        print(f"debug CLI: {out}; launches {counts}")
+        check_launches(counts, per_pass(modes_forward_names(dm), n_passes(dm)), "the debug CLI's forward")
+        check(out["logits_shape"] == (256, dm.num_classes) and np.isfinite(list(out["aux_losses"].values())).all()
+              and all(Path(f).stat().st_size > 0 for f in out["figures"]) and len(out["figures"]) == 2,
+              "the debug CLI's summary or figures are wrong")
+        by_path["debug"] = counts
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"serving modes phase: {time.perf_counter() - t_phase:.1f} s of wall time")
+    return by_path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device — this smoke test runs only on the card", file=sys.stderr)
@@ -2730,6 +2962,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     # the trainer's settings: one bf16-moment step of nViT-B/16, counted from 0
     by_path["nvit-bf16-moments"] = settings_phase(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the serving modes: one forward of each (int8, the AOT artifacts), the debug CLI's
+    by_path.update(serving_modes_phase(smi))
 
     # launches: the flagship paths' (above; the Kohonen flagship's last);
     # path_launches: each full path's own; profile_launches: one step of

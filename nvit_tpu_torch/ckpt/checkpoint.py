@@ -163,13 +163,13 @@ def read_leaves(out_dir: str | Path, name: str, specs: list, meta: dict[str, Any
     return leaves
 
 
-def state_dict_of_leaves(leaves: list[np.ndarray], model_cfg) -> dict[str, torch.Tensor]:
-    """Leaves in the params' flatten order → a state_dict (torch tensors on
-    the CPU).  bfloat16 leaves, stored as 2-byte void records, cross as their
-    int16 bits (``state_dict_from_jax`` moves layouts only) and come back as
-    bfloat16."""
+def state_dict_of_leaves(leaves: list[np.ndarray], model_cfg, *, int8: bool = False) -> dict[str, torch.Tensor]:
+    """Leaves in the params' flatten order (the int8 tree's with ``int8``) →
+    a state_dict (torch tensors on the CPU).  bfloat16 leaves, stored as
+    2-byte void records, cross as their int16 bits (``state_dict_from_jax``
+    moves layouts only) and come back as bfloat16."""
     stored = [a.view(np.int16) if a.dtype.kind == "V" else a for a in leaves]
-    sd = state_dict_from_jax(unflatten(param_tree(model_cfg), iter(stored)), model_cfg)
+    sd = state_dict_from_jax(unflatten(param_tree(model_cfg, int8=int8), iter(stored)), model_cfg)
     return {k: v.view(torch.bfloat16) if v.dtype == torch.int16 else v for k, v in sd.items()}
 
 

@@ -10,6 +10,9 @@ package import pulls jax):
 * the global patch embed ``[C·k·k, d]`` in the 2×2-block-major fan-in order →
   Conv2d ``[d, C, k, k]`` through the inverse of
   ``models.patch.global_embed_permutation``;
+* an int8 linear (``ops/quant.py``, the JAX ``{"wq", "scale"[, "b"]}``
+  leaves) → ``<module>.wq`` ``[out, in]``, ``.scale`` and ``.b``; the int8
+  patch embeds keep the JAX fan-in order, the order their forward reads;
 * with Kohonen, each map's ``nodes`` as they are and ``map_balance`` (0-d);
   the maps' ``locations`` / ``offsets`` buffers are recomputed from the
   config, and a moment dict (which has no buffers) gets none.
@@ -44,6 +47,12 @@ def _t(a: Any) -> torch.Tensor:
 
 
 def _linear(p: Mapping[str, Any], prefix: str, sd: dict) -> None:
+    if "wq" in p:  # int8 (ops/quant.py): wq [in, out] → [out, in], the bias a buffer ``b``
+        sd[f"{prefix}.wq"] = _t(np.asarray(p["wq"]).T)
+        sd[f"{prefix}.scale"] = _t(p["scale"])
+        if "b" in p:
+            sd[f"{prefix}.b"] = _t(p["b"])
+        return
     sd[f"{prefix}.weight"] = _t(np.asarray(p["w"]).T)
     if "b" in p:
         sd[f"{prefix}.bias"] = _t(p["b"])
@@ -56,14 +65,18 @@ def state_dict_from_jax(params: Mapping[str, Any], cfg: ViTConfig) -> dict[str, 
     lp, gp = cfg.local_patch_size, cfg.global_patch_size
     sd: dict[str, torch.Tensor] = {}
 
-    lw = np.asarray(params["local_patch_embed"]["w"])  # [C·p·p, d]
-    sd["local_patch_embed.weight"] = _t(lw.T.reshape(d, c, lp, lp))
-    sd["local_patch_embed.bias"] = _t(params["local_patch_embed"]["b"])
-
-    inv = np.argsort(global_embed_permutation(c, gp, lp))
-    gw = np.asarray(params["global_patch_embed"]["w"]).T  # [d, C·k·k] in our order
-    sd["global_patch_embed.1.weight"] = _t(gw[:, inv].reshape(d, c, gp, gp))
-    sd["global_patch_embed.1.bias"] = _t(params["global_patch_embed"]["b"])
+    if "wq" in params["local_patch_embed"]:
+        # int8 embeds keep the JAX fan-in order, which is their forward's order
+        _linear(params["local_patch_embed"], "local_patch_embed", sd)
+        _linear(params["global_patch_embed"], "global_patch_embed.1", sd)
+    else:
+        lw = np.asarray(params["local_patch_embed"]["w"])  # [C·p·p, d]
+        sd["local_patch_embed.weight"] = _t(lw.T.reshape(d, c, lp, lp))
+        sd["local_patch_embed.bias"] = _t(params["local_patch_embed"]["b"])
+        inv = np.argsort(global_embed_permutation(c, gp, lp))
+        gw = np.asarray(params["global_patch_embed"]["w"]).T  # [d, C·k·k] in our order
+        sd["global_patch_embed.1.weight"] = _t(gw[:, inv].reshape(d, c, gp, gp))
+        sd["global_patch_embed.1.bias"] = _t(params["global_patch_embed"]["b"])
 
     sd["local_pos_embed"] = _t(params["local_pos_embed"])
     sd["global_pos_embed"] = _t(params["global_pos_embed"])
@@ -149,7 +162,7 @@ def jax_order(name: str, t: torch.Tensor, local_patch: int) -> torch.Tensor:
         if k == 2 * s:  # features (i, j, C, ph, pw) of the kernel row i·s + ph, column j·s + pw
             return t.view(d, c, 2, s, 2, s).permute(2, 4, 1, 3, 5, 0)
         return t.reshape(d, -1).T
-    if t.dim() == 2 and name.endswith(".weight"):
+    if t.dim() == 2 and name.endswith((".weight", ".wq")):
         return t.T
     return t
 
@@ -172,8 +185,9 @@ def jax_params_from_state_dict(sd: Mapping[str, torch.Tensor], cfg: ViTConfig) -
     moment dict with its keys) → ``init_vit``'s tree with numpy leaves, each
     a host copy in its JAX layout (``jax_order``: linear weights back to
     ``[in, out]``, the patch embeds to their ``[C·k·k, d]`` matrices, the
-    global one's fan-in in the 2×2-block-major order)."""
-    tree = param_tree(cfg)
+    global one's fan-in in the 2×2-block-major order).  An int8 model's
+    ``state_dict`` (``ops/quant.py``) gives the int8 tree."""
+    tree = param_tree(cfg, int8=any(name.endswith(".wq") for name in sd))
     for name, t in sd.items():
         if name.endswith((".locations", ".offsets")):  # the maps' grid buffers have no leaf
             continue

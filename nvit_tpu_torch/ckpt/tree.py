@@ -7,7 +7,9 @@ module gives the port that order and those shapes from the config alone:
 * ``param_tree`` — the skeleton of ``init_vit``'s tree (``nvit_tpu/models/
   vit.py:63-96``): nested dicts and the list of blocks, each leaf a
   ``Spec(shape, dtype)``, for nViT and baseline, with or without biases,
-  with or without the Kohonen maps;
+  with or without the Kohonen maps, and int8-quantized (the tree of
+  ``nvit_tpu/ops/quant.py::quantize_vit_params``: dict keys sort, so a
+  linear's leaves come as ``b``, ``scale``, ``wq``);
 * ``flatten`` / ``unflatten`` — ``jax.tree_util``'s order: dict keys sorted,
   list items in order;
 * ``train_state_specs`` — ``TrainState(params, opt_state=FusedAdamWState(
@@ -36,19 +38,20 @@ class Spec(NamedTuple):
     dtype: str = "float32"
 
 
-def _linear(i: int, o: int, bias: bool) -> dict[str, Spec]:
-    p = {"w": Spec((i, o))}
-    if bias:
-        p["b"] = Spec((o,))
-    return p
-
-
-def param_tree(cfg: ViTConfig) -> dict[str, Any]:
-    """``init_vit``'s tree for ``cfg`` with ``Spec`` leaves."""
+def param_tree(cfg: ViTConfig, *, int8: bool = False) -> dict[str, Any]:
+    """``init_vit``'s tree for ``cfg`` with ``Spec`` leaves; with ``int8``,
+    ``quantize_vit_params``' tree: every linear ``{"wq" int8 [in, out],
+    "scale" [out][, "b" [out]]}``."""
     cfg.validate()
     d, c, bias = cfg.n_embd, cfg.channels, cfg.bias
     lp, gp = cfg.local_patch_size, cfg.global_patch_size
     vec = Spec((d,))
+
+    def _linear(i: int, o: int, bias: bool) -> dict[str, Spec]:
+        p = {"wq": Spec((i, o), "int8"), "scale": Spec((o,))} if int8 else {"w": Spec((i, o))}
+        if bias:
+            p["b"] = Spec((o,))
+        return p
 
     def block() -> dict[str, Any]:
         p: dict[str, Any] = {
@@ -70,8 +73,8 @@ def param_tree(cfg: ViTConfig) -> dict[str, Any]:
     else:
         ca.update(local_norm=vec, global_norm=vec)
     params: dict[str, Any] = {
-        "local_patch_embed": {"w": Spec((c * lp * lp, d)), "b": vec},
-        "global_patch_embed": {"w": Spec((c * gp * gp, d)), "b": vec},
+        "local_patch_embed": _linear(c * lp * lp, d, True),
+        "global_patch_embed": _linear(c * gp * gp, d, True),
         "local_pos_embed": Spec((1, cfg.n_patches, d)),
         "global_pos_embed": Spec((1, cfg.n_patches, d)),
         "cross_attention": ca,

@@ -12,7 +12,8 @@ name)`` (a params-only export, ``ckpt/export.py``), or
 ``Predictor(state_dict, cfg.model, device="cuda")`` with a ``state_dict``
 from ``ckpt.convert.state_dict_from_jax``.  None of them builds an
 optimizer.  The forward runs the port's kernels where the model's config
-selects them.
+selects them.  ``quantize="int8"`` serves w8a8 (``ops/quant.py``): int8
+linears on ``torch._int_mm``, attention still on K1/K5 or K7.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from nvit_tpu_torch.ckpt.export import load_export
 from nvit_tpu_torch.configs import Config, ViTConfig
 from nvit_tpu_torch.data.augment import normalize
 from nvit_tpu_torch.models.vit import ViT
+from nvit_tpu_torch.ops.quant import int8_skeleton, quantize_vit
 
 
 def topk_from_probs(probs: np.ndarray, top_k: int) -> tuple[np.ndarray, np.ndarray]:
@@ -51,13 +53,15 @@ class Predictor:
     ):
         """``state_dict_or_module``: a ``ViT`` (moved to ``device``, the card
         unless the caller asks for the CPU) or its ``state_dict`` (loaded
-        strictly).  ``compute_dtype=None`` runs fp32."""
+        strictly; an int8 one into the int8 model).  ``compute_dtype=None``
+        runs fp32.  ``quantize="int8"`` quantizes every linear once, after
+        loading (w8a8, ``ops/quant.py``); an int8 export stays as stored."""
         if data_parallel or model_parallel != 1:
             raise NotImplementedError(
                 "data_parallel / model_parallel are not ported yet (ROADMAP.md, multi-GPU)"
             )
-        if quantize is not None:
-            raise NotImplementedError("quantize is not ported yet (ROADMAP.md, int8)")
+        if quantize not in (None, "int8"):
+            raise ValueError(f"unknown quantize mode {quantize!r} (supported: 'int8')")
         self.cfg = model_cfg
         self.device = torch.device(device)
         self.compute_dtype = compute_dtype
@@ -65,7 +69,11 @@ class Predictor:
             model = state_dict_or_module.to(self.device)
         else:
             model = ViT(model_cfg, device=self.device)
+            if any(name.endswith(".wq") for name in state_dict_or_module):
+                int8_skeleton(model)
             model.load_state_dict(state_dict_or_module, strict=True)
+        if quantize == "int8":
+            quantize_vit(model)
         self.model = model.eval()
 
     @classmethod

@@ -20,6 +20,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from nvit_tpu_torch.configs import ViTConfig
@@ -28,6 +29,7 @@ from nvit_tpu_torch.core.norms import rms_norm
 from nvit_tpu_torch.core.residual import slerp_residual
 from nvit_tpu_torch.ops.attention import attention, attention_qknorm
 from nvit_tpu_torch.ops.gated_mlp import gated_mlp
+from nvit_tpu_torch.ops.quant import QuantParams
 
 # fixed (init_value, init_scaling) constants of the learned scale vectors
 # (≙ blocks.py:40-44; the scaling of alpha and sqk is config.base_scale)
@@ -104,7 +106,11 @@ def gated_linear(
 ) -> torch.Tensor:
     """``u * silu(v)`` over ``x Wᵀ (+ b)`` with linear's casting contract
     (≙ blocks.py:_gated_linear); w is [2H, K].  With a bias the kernel path
-    is K6, the plain path rounds ``x Wᵀ`` before adding it."""
+    is K6, the plain path rounds ``x Wᵀ`` before adding it.  An int8 ``w``
+    runs the int8 linear and gates in the compute dtype, without K3/K6."""
+    if isinstance(w, QuantParams):
+        u, v = torch.chunk(linear(x, w, b, compute_dtype=compute_dtype), 2, dim=-1)
+        return u * F.silu(v)
     if compute_dtype is not None:
         x = x.to(compute_dtype)
         w = w.to(compute_dtype)
@@ -195,9 +201,13 @@ class Block(nn.Module):
         w_fc, b_fc = self.c_fc.weight, self.c_fc.bias
         if nvit:
             # weight-side suv fold: suv·(x Wᵀ) ≡ x (suv ⊙ W)ᵀ, so scale the ROWS
-            # of the [2H, K] weight in fp32 before the cast (≙ blocks.py:174-186)
+            # of the [2H, K] weight in fp32 before the cast (≙ blocks.py:174-186);
+            # an int8 weight takes it into its per-output scale, exactly
             suv = self.suv * ((SUV_INIT_VALUE / SUV_INIT_SCALING) * math.sqrt(cfg.n_embd))
-            w_fc = w_fc * suv[:, None]
+            if isinstance(w_fc, QuantParams):
+                w_fc = QuantParams(w_fc.wq, w_fc.scale * suv)
+            else:
+                w_fc = w_fc * suv[:, None]
             b_fc = b_fc * suv if b_fc is not None else None
         x_mlp = gated_linear(x, w_fc, b_fc, compute_dtype=dt, use_kernel=use_mlp_kernel(cfg))
         h_mlp = linear(x_mlp, self.mlp_c_proj.weight, self.mlp_c_proj.bias, compute_dtype=dt)

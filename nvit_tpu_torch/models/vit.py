@@ -27,6 +27,11 @@ BMU indices and, under ``hebbian``, the two maps' Hebbian deltas, computed
 against the current nodes for the train step to add after the update.
 ``total_loss``, ``num_params`` and ``estimate_flops_per_iter`` follow vit.py.
 
+An int8 model (``ops.quant.quantize_vit``) holds ``QuantLinear`` modules in
+place of its linears and patch-embedding convs; the forwards pass their
+``QuantParams`` weights to ``core.layers.linear`` as they pass float ones
+(≙ vit.py:102, 108, 211, 215).
+
 Under ``remat`` (``system.remat``) each cross-attention pass and every block
 but the last ``remat_skip`` are recomputed in the backward (≙ vit.py:138-141,
 :197-207, ``jax.checkpoint`` with ``dots_with_no_batch_dims_saveable``):
@@ -59,6 +64,7 @@ from nvit_tpu_torch.models.patch import (
     space_to_depth,
 )
 from nvit_tpu_torch.models.schedules import kohonen_lr
+from nvit_tpu_torch.ops.quant import QuantLinear
 from nvit_tpu_torch.som.kohonen import KohonenMap, KohonenSpec, bmu, hebbian_delta, make_spec, neighborhood_kernel
 
 
@@ -161,10 +167,13 @@ class ViT(nn.Module):
         cfg = self.cfg
         d, lp, gp = cfg.n_embd, cfg.local_patch_size, cfg.global_patch_size
         conv_l, conv_g = self.local_patch_embed, self.global_patch_embed[1]
-        local = linear(space_to_depth(img, lp), conv_l.weight.reshape(d, -1), conv_l.bias,
-                       compute_dtype=compute_dtype)
+        # an int8 embed (ops/quant.py) holds its fan-in in this order already
+        w_local, w_global = conv_l.weight, conv_g.weight
+        if not isinstance(conv_l, QuantLinear):
+            w_local = w_local.reshape(d, -1)
+            w_global = w_global.reshape(d, -1)[:, self.global_embed_perm]
+        local = linear(space_to_depth(img, lp), w_local, conv_l.bias, compute_dtype=compute_dtype)
         global_px = extract_overlapping_patches(reflect_pad(img, (gp - lp) // 2), gp, lp)
-        w_global = conv_g.weight.reshape(d, -1)[:, self.global_embed_perm]
         global_ = linear(global_px, w_global, conv_g.bias, compute_dtype=compute_dtype)
         local = local + self.local_pos_embed.to(local.dtype)
         global_ = global_ + self.global_pos_embed.to(global_.dtype)

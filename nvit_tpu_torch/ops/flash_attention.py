@@ -43,7 +43,10 @@ heads can stay views of the fused QKV projection — and are differentiable:
   kernels' math with their rounding points, forward and backward.
 
 Without autograd (``torch.inference_mode``, ``no_grad``, or no input that
-requires grad) the forward computes no lse and saves nothing.
+requires grad) the forward computes no lse and saves nothing: it is the
+registered operator ``torch.ops.nvit.qknorm_attention`` or
+``torch.ops.nvit.flash_attention`` (end of this file), which
+``torch.export`` records as a call.
 """
 
 from __future__ import annotations
@@ -543,9 +546,7 @@ def flash_attention_qknorm(
                                v, scale)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v, sqk_eff)):
         return FlashQKNormFn.apply(q, k, v, sqk_eff, scale, mode)
-    if q.is_cuda:
-        return qknorm_attention_fwd(q, k, v, sqk_eff, scale, mode=mode)[0]
-    return flash_attention_qknorm_ref(q, k, v, sqk_eff, scale, mode)[0]
+    return torch.ops.nvit.qknorm_attention(q, k, v, sqk_eff, scale, mode)
 
 
 # ------------------------------------------------------------ baseline mode
@@ -861,6 +862,56 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
     q, k = q.to(v.dtype), k.to(v.dtype)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         return FlashAttnFn.apply(q, k, v, scale)
-    if q.is_cuda:
-        return flash_attention_fwd(q, k, v, scale)[0]
+    return torch.ops.nvit.flash_attention(q, k, v, scale)
+
+
+# ------------------------------------------------------ registered operators
+# The serving forwards (no autograd) as ``torch.library`` operators, so that
+# ``torch.export`` records them as calls (it cannot trace a ctypes launch) and
+# an exported program runs the same kernels (ckpt/aot.py).  The CUDA key
+# launches K1/K5 after the prologue, or K7, or raises; the CPU key runs the
+# twin.  The fake implementation gives the output's shape, dtype and strides
+# without storage: every check that reads a pointer, and every launch count,
+# runs in the real implementation only, when the program executes.
+
+
+def _attention_out(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """An empty [B, H, T, D] output laid out as its implementation writes it:
+    a view of [B, T, H, D] storage on the card, contiguous from the twins."""
+    b, h, t, d = q.shape
+    if q.device.type == "cuda":
+        return v.new_empty((b, t, h, d)).permute(0, 2, 1, 3)
+    return v.new_empty((b, h, t, d))
+
+
+@torch.library.custom_op("nvit::qknorm_attention", mutates_args=(), device_types="cpu")
+def qknorm_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sqk_eff: torch.Tensor,
+                        scale: float, mode: str) -> torch.Tensor:
+    """K1 (K5) forward without lse; on CPU tensors its twin."""
+    return flash_attention_qknorm_ref(q, k, v, sqk_eff, scale, mode)[0]
+
+
+@qknorm_attention_op.register_kernel("cuda")
+def _qknorm_attention_cuda(q, k, v, sqk_eff, scale, mode):
+    return qknorm_attention_fwd(q, k, v, sqk_eff, scale, mode=mode)[0]
+
+
+@qknorm_attention_op.register_fake
+def _qknorm_attention_fake(q, k, v, sqk_eff, scale, mode):
+    return _attention_out(q, v)
+
+
+@torch.library.custom_op("nvit::flash_attention", mutates_args=(), device_types="cpu")
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
+    """K7 forward without lse; on CPU tensors its twin."""
     return flash_attention_ref(q, k, v, scale)[0]
+
+
+@flash_attention_op.register_kernel("cuda")
+def _flash_attention_cuda(q, k, v, scale):
+    return flash_attention_fwd(q, k, v, scale)[0]
+
+
+@flash_attention_op.register_fake
+def _flash_attention_fake(q, k, v, scale):
+    return _attention_out(q, v)

@@ -19,6 +19,8 @@ bias pointer, with launch counts of their own (``.launches_bias``).
   column sum of [du | dv], as ``_core_bwd_b`` takes it.
 * ``use_kernel=False`` is the unfused chain ``_xla_gated`` (matmul in the
   input dtype, then the bias, split, gate), chosen by configuration.
+* Without autograd the forward is the registered operator
+  ``torch.ops.nvit.gated_mlp``, which ``torch.export`` records as a call.
 """
 
 from __future__ import annotations
@@ -235,6 +237,25 @@ def gated_mlp(
     *lead, k = x.shape
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, w, b)):
         return GatedMLPFn.apply(x.reshape(-1, k), w, b).reshape(*lead, w.shape[0] // 2)
-    if x.is_cuda:
-        return gated_mlp_fwd(x, w, b)
+    return torch.ops.nvit.gated_mlp(x, w, b)
+
+
+# The serving forward as a ``torch.library`` operator, so ``torch.export``
+# records it as a call (ckpt/aot.py): the CUDA key launches K3 (K6 with a
+# bias) or raises, the CPU key runs the twin; the fake implementation gives
+# the output without storage, so the checks and the launch count run only
+# when the program executes (as ops/flash_attention.py's operators).
+@torch.library.custom_op("nvit::gated_mlp", mutates_args=(), device_types="cpu")
+def gated_mlp_op(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None) -> torch.Tensor:
+    """K3 (K6) forward; on CPU tensors its twin."""
     return gated_mlp_ref(x, w, b)
+
+
+@gated_mlp_op.register_kernel("cuda")
+def _gated_mlp_cuda(x, w, b):
+    return gated_mlp_fwd(x, w, b)
+
+
+@gated_mlp_op.register_fake
+def _gated_mlp_fake(x, w, b):
+    return x.new_empty((*x.shape[:-1], w.shape[0] // 2))

@@ -17,14 +17,19 @@ concurrent requests into one forward (DynamicBatcher).  From the command
 line, on the card::
 
     python -m nvit_tpu_torch.serve --checkpoint out --name checkpoint_best --port 8321
-    python -m nvit_tpu_torch.serve --export --checkpoint deploy --warm-buckets
+    python -m nvit_tpu_torch.serve --export --checkpoint deploy --warm-buckets [--int8]
+    python -m nvit_tpu_torch.serve --aot --checkpoint deploy --name checkpoint_best
 
 SIGTERM or SIGINT drains: the server stops accepting, answers every request
 it accepted, and exits 0 ("drained; exiting").  SIGHUP reloads the model
 from the same files off the serving path and swaps it in; if the rebuild
-fails, the old model keeps serving.  ``--aot``, ``--int8``,
-``--data-parallel`` and ``--model-parallel`` > 1 are refused, naming their
-ROADMAP.md items.  In a program::
+fails, the old model keeps serving.  ``--int8`` serves w8a8
+(``ops/quant.py``); ``--aot`` serves an artifact of ``ckpt/aot.py`` (no model
+built from code; a pinned batch pads every request up to it and caps it),
+and excludes ``--int8`` (baked in at export), ``--export``,
+``--data-parallel`` and ``--model-parallel``.  ``--data-parallel`` and
+``--model-parallel`` > 1 are refused, naming their ROADMAP.md item.  In a
+program::
 
     service = InferenceService(Predictor.from_config(cfg, device="cuda"), max_batch=32)
     service.warmup()
@@ -43,6 +48,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
+from nvit_tpu_torch.ckpt.aot import load_aot
 from nvit_tpu_torch.infer import Predictor, topk_from_probs
 
 logger = logging.getLogger("nvit_tpu_torch.serve")
@@ -235,7 +241,10 @@ class InferenceService:
         self._builder = builder
         self._warm_all = False
         self._reload_lock = threading.Lock()  # serializes concurrent reloads
-        self.max_batch = max_batch
+        # an AOT artifact with a pinned batch (ckpt/aot.py) takes exactly that
+        # batch: every request is padded up to it, and it caps the accepted batch
+        self._pinned = getattr(predictor, "pinned_batch", None)
+        self.max_batch = self._pinned or max_batch
         self._lock = threading.Lock()
         self.stats = ServingStats()
         self._batcher = (
@@ -261,9 +270,12 @@ class InferenceService:
         self.stats = ServingStats()
 
     def _bucket_sizes(self) -> list[int]:
-        """Every batch shape the service dispatches: bucket 1, and after
-        ``warmup(all_buckets=True)`` the power-of-two ladder and max_batch
-        itself (``_pad_batch`` clamps its top bucket to max_batch)."""
+        """Every batch shape the service dispatches: the pinned batch of an
+        AOT artifact; else bucket 1, and after ``warmup(all_buckets=True)``
+        the power-of-two ladder and max_batch itself (``_pad_batch`` clamps
+        its top bucket to max_batch)."""
+        if self._pinned:
+            return [self._pinned]
         buckets = [1]
         if self._warm_all:
             b = 2
@@ -286,6 +298,9 @@ class InferenceService:
             )
         with self._reload_lock:
             new = builder()
+            if getattr(new, "pinned_batch", None) != self._pinned:
+                raise ValueError(f"reloaded artifact pins batch {getattr(new, 'pinned_batch', None)} "
+                                 f"but the service was built for {self._pinned}")
             if (new.cfg.image_size, new.cfg.num_classes) != (
                 self.model_info["image_size"], self.model_info["num_classes"]
             ):
@@ -335,10 +350,14 @@ class InferenceService:
 
     def _padded_probs(self, images: np.ndarray) -> np.ndarray:
         """One device forward over a (possibly coalesced) batch, padded to the
-        next power of two, serialized through the lock → probs for exactly
-        the input rows."""
+        artifact's pinned batch or the next power of two, serialized through
+        the lock → probs for exactly the input rows."""
         b = images.shape[0]
-        images, _ = _pad_batch(images, self.max_batch)
+        if self._pinned:
+            pad = np.zeros((self._pinned - b, *images.shape[1:]), dtype=images.dtype)
+            images = np.concatenate([images, pad], axis=0) if b < self._pinned else images
+        else:
+            images, _ = _pad_batch(images, self.max_batch)
         with self._lock:
             probs = np.asarray(self.predictor.predict_probs(images))
         self.stats.record_program(b, images.shape[0])
@@ -347,6 +366,8 @@ class InferenceService:
     def predict(self, images: np.ndarray, top_k: int = 1) -> dict:
         if images.shape[0] > self.max_batch:
             self.stats.record_error()
+            if self._pinned:
+                raise ValueError(f"batch {images.shape[0]} exceeds the artifact's pinned batch {self._pinned}")
             raise ValueError(f"batch {images.shape[0]} exceeds max_batch {self.max_batch}")
         t0 = time.perf_counter()
         try:
@@ -430,7 +451,8 @@ def make_handler(service: InferenceService):
 
 
 def main(argv=None) -> None:
-    """Serve a checkpoint (or, with ``--export``, an export) over HTTP."""
+    """Serve a checkpoint (or, with ``--export``, an export; with ``--aot``,
+    an AOT artifact) over HTTP."""
     ap = argparse.ArgumentParser(description="Serve an nvit_tpu_torch checkpoint over HTTP")
     ap.add_argument("--checkpoint", default="out", help="checkpoint (or export) directory")
     ap.add_argument("--name", default="checkpoint_best", help="checkpoint name")
@@ -445,21 +467,29 @@ def main(argv=None) -> None:
     ap.add_argument("--warm-buckets", action="store_true",
                     help="run every power-of-two batch bucket at startup")
     ap.add_argument("--device", default="cuda", help="the card unless 'cpu' is asked for")
-    ap.add_argument("--aot", action="store_true", help="not ported")
-    ap.add_argument("--int8", action="store_true", help="not ported")
+    ap.add_argument("--int8", action="store_true",
+                    help="int8-quantize the model for serving (w8a8, ops/quant.py)")
+    ap.add_argument("--aot", action="store_true",
+                    help="load an AOT artifact (ckpt.aot): no model built from code; "
+                         "--int8 is baked in at export time")
     ap.add_argument("--data-parallel", action="store_true", help="not ported")
     ap.add_argument("--model-parallel", type=int, default=1, help="not ported beyond 1")
     args = ap.parse_args(argv)
-    for refused, flag, item in ((args.aot, "--aot", "the remaining entry points"),
-                                (args.int8, "--int8", "int8 serving"),
-                                (args.data_parallel, "--data-parallel", "multi-GPU"),
-                                (args.model_parallel != 1, "--model-parallel > 1", "multi-GPU")):
+    if args.aot and (args.int8 or args.data_parallel or args.export or args.model_parallel > 1):
+        # export-time properties of the artifact: accepting them here would serve something else
+        ap.error("--aot is exclusive: bake --int8 into the artifact via "
+                 "ckpt.aot, and --export/--data-parallel/--model-parallel do not apply")
+    for refused, flag in ((args.data_parallel, "--data-parallel"),
+                          (args.model_parallel != 1, "--model-parallel > 1")):
         if refused:
-            ap.error(f"{flag} is not ported yet (ROADMAP.md, '{item}')")
+            ap.error(f"{flag} is not ported yet (ROADMAP.md, 'multi-GPU')")
 
-    def build() -> Predictor:
+    def build():
+        if args.aot:
+            return load_aot(args.checkpoint, args.name, device=args.device)
         load = Predictor.from_export if args.export else Predictor.from_checkpoint
-        return load(args.checkpoint, args.name, device=args.device)
+        return load(args.checkpoint, args.name, device=args.device,
+                    quantize="int8" if args.int8 else None)
 
     service = InferenceService(build(), max_batch=args.max_batch,
                                batch_window_ms=args.batch_window_ms, builder=build)

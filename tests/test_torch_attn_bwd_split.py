@@ -10,17 +10,15 @@ seed with numpy and handed to both frameworks.
 
 The JAX script is imported from its file, not run: at import it takes an
 exclusive flock on the TPU lock file (``acquire_tpu_lock``, which waits up
-to 7200 s for another holder) and points JAX's persistent compile cache
-into the repository.  So the import runs with ``NVIT_TPU_LOCK`` on a private
-file, and the two cache settings (and ``sys.path``, which the script
-extends) are restored right after it.
+to 7200 s for another holder) and points JAX's persistent compile cache into
+the repository. So the import runs with ``NVIT_TPU_LOCK`` on a private file,
+and the two cache settings (and ``sys.path``, which the script extends) are
+restored right after it.
+
+Companion files: tests/test_torch_attn_bwd_split_chunks.py; shared inputs:
+tests/torch_attn_bwd_split_cases.py.
 """
 
-import importlib.util
-import sys
-from pathlib import Path
-
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,73 +26,17 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from nvit_tpu_torch.ops import flash_attention as fa
+from tests.torch_attn_bwd_split_cases import (
+    DSQK_RTOL,
+    DTYPES,
+    SCALE,
+    as_np,
+    forward_residuals,
+    inputs,
+    jax_script,
+)
 
 torch.set_num_threads(1)
-
-JAX_SCRIPT = Path(__file__).resolve().parents[1] / "scripts" / "attn_bwd_split_bench.py"
-# (jax dtype, torch dtype, bound on max|Δ| / max|ref| and on the relative L2
-# of dq/dk/dv).  Both are scaled by the reference: at the script's scales of
-# v and dO, |dq| is a few 1e-3, so an absolute limit of 2e-2 would pass a zero
-# gradient.  fp32: summation order only.  bf16: the max bound is PERF.md §2's
-# 2e-2 scaled as its dsqk limit is (an output's last bf16 bit may land either
-# side); the L2 bound holds the rounding points — moving any one of q̂_s, k̂,
-# k̂_s, P or dS to fp32 puts 2.5e-3 or more into some output's relative L2,
-# where the shared points leave it under 1e-4.
-DTYPES = {
-    "fp32": (jnp.float32, torch.float32, 1e-4, 1e-5),
-    "bf16": (jnp.bfloat16, torch.bfloat16, 2e-2, 1e-3),
-}
-# max|Δ dsqk| / max|dsqk|, both dtypes: dsqk is fp32 and sums the fp32 dq̂ and
-# dk̂, so a moved bf16 rounding point shows there as 7e-4 or more
-DSQK_RTOL = 1e-4
-SCALE = 8.0  # the JAX script's SCALE, which its bwd_split bakes in
-CACHE_KEYS = ("jax_compilation_cache_dir", "jax_persistent_cache_min_compile_time_secs")
-
-
-@pytest.fixture(scope="module")
-def jax_script(tmp_path_factory):
-    """scripts/attn_bwd_split_bench.py as a module, its import side effects
-    kept off the shared lock file and the test run's JAX settings."""
-    saved = {key: getattr(jax.config, key) for key in CACHE_KEYS}
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("NVIT_TPU_LOCK", str(tmp_path_factory.mktemp("lock") / "lock"))
-        mp.setattr(sys, "path", list(sys.path))
-        spec = importlib.util.spec_from_file_location("jax_attn_bwd_split_bench", JAX_SCRIPT)
-        module = importlib.util.module_from_spec(spec)
-        try:
-            spec.loader.exec_module(module)
-        finally:
-            for key, value in saved.items():
-                jax.config.update(key, value)
-    yield module
-    module._TPU_LOCK.close()
-
-
-def inputs(seed, b, h, t, d):
-    """q, k, v, sqk_eff [H, D], dO as float32 numpy arrays, the script's scales."""
-    rng = np.random.default_rng(seed)
-    q, k = (rng.standard_normal((b, h, t, d), dtype=np.float32) for _ in range(2))
-    v = 0.3 * rng.standard_normal((b, h, t, d), dtype=np.float32)
-    do = 0.1 * rng.standard_normal((b, h, t, d), dtype=np.float32)
-    sqk = (1.0 + 0.1 * rng.standard_normal((h, d))).astype(np.float32)
-    return q, k, v, sqk, do
-
-
-def to_torch(a, dtype):
-    return torch.from_numpy(np.ascontiguousarray(a)).to(dtype)
-
-
-def as_np(x):
-    return x.float().numpy() if isinstance(x, torch.Tensor) else np.asarray(x, np.float32)
-
-
-def forward_residuals(q, k, v, sqk, do, tdt):
-    """The torch operands and the twin's forward (o, lse), row-max arm, at
-    the script's SCALE = 8."""
-    qt, kt, vt, dot = (to_torch(x, tdt) for x in (q, k, v, do))
-    st = torch.from_numpy(sqk)
-    o, lse = fa.flash_attention_qknorm_ref(qt, kt, vt, st, SCALE)
-    return qt, kt, vt, st, dot, o, lse
 
 
 @pytest.mark.parametrize("shape", [(1, 4, 128, 64), (1, 3, 112, 32)])  # [BH, T, D] = [4, 128, 64], [3, 112, 32]
@@ -126,25 +68,6 @@ def test_k10_twin_matches_pallas_bwd_split(jax_script, shape, nsplit, dtype):
     dsqk, dsqk_ref = as_np(got[3]).reshape(b * h, d), as_np(want[3]).reshape(b * h, d)
     assert got[3].dtype == torch.float32
     assert np.abs(dsqk - dsqk_ref).max() <= DSQK_RTOL * np.abs(dsqk_ref).max()
-
-
-@pytest.mark.parametrize("t", [112, 128, 784, 1104])
-@pytest.mark.parametrize("nsplit", [1, 2, 7])
-def test_k10_chunk_table_tiles_the_script_sub_tiles(jax_script, t, nsplit):
-    """The query chunks the kernel walks (``subtile_chunks``, handed to it
-    as a table): each of the JAX script's ``_split_bounds`` sub-tiles is
-    covered exactly, in order, by chunks of at most 64 rows that start on a
-    multiple of 16 and never cross its end."""
-    sub = jax_script._split_bounds(t, nsplit)
-    assert fa.split_bounds(t, nsplit) == sub
-    chunks = fa.subtile_chunks(t, nsplit)
-    assert chunks[0][0] == 0 and chunks[-1][1] == t
-    assert all(e == a for (_, e), (a, _) in zip(chunks, chunks[1:]))  # end to end, in order
-    for a, e in chunks:
-        assert a % 16 == 0 and 0 < e - a <= fa.BLOCK, (a, e)
-        assert sum(sa <= a and e <= se for sa, se in sub) == 1, (a, e)  # inside one sub-tile
-    for sa, se in sub:
-        assert [c for c in chunks if sa <= c[0] < se][-1][1] == se
 
 
 @pytest.mark.parametrize("nsplit", [2, 7])

@@ -40,7 +40,7 @@ from nvit_tpu_torch.train import optim
 from nvit_tpu_torch.train.state import TrainState
 from nvit_tpu_torch.train.step import make_train_step
 from nvit_tpu_torch.train.trainer import Trainer
-from tests.test_torch_ckpt import trainer_config
+from tests.torch_ckpt_cases import trainer_config
 from tests.torch_parity import kohonen_fields, paired_configs, random_jax_params
 
 torch.set_num_threads(1)

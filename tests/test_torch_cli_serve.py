@@ -1,0 +1,99 @@
+"""The port's serve CLI on the CPU (a companion of tests/test_torch_cli.py):
+``--data-parallel`` and ``--model-parallel 2`` refused by name,
+``InferenceService.warmup(all_buckets=True)`` on the JAX package's bucket
+ladder, and one run in a subprocess (an export served over HTTP, SIGHUP
+reload, SIGTERM drain)."""
+
+import http.client
+import json
+import os
+import queue
+import signal
+import subprocess
+import sys
+import threading
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+import nvit_tpu.serve as jax_serve
+from nvit_tpu_torch.ckpt import export as port_export
+from nvit_tpu_torch.infer import Predictor
+from nvit_tpu_torch.serve import InferenceService
+from nvit_tpu_torch.serve import main as serve_main
+from tests.torch_cli_cases import REPO, clean_environment, tiny_checkpoint  # noqa: F401 (autouse)
+
+torch.set_num_threads(1)
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--data-parallel"], "multi-GPU"), (["--model-parallel", "2"], "multi-GPU"),
+])
+def test_serve_cli_refuses_unported_options(capsys, flags, item):
+    with pytest.raises(SystemExit) as exit_info:
+        serve_main(flags)
+    assert exit_info.value.code == 2 and item in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("max_batch", [1, 5, 8, 24])
+def test_warmup_all_buckets_is_the_jax_ladder(tmp_path, max_batch):
+    tiny_checkpoint(tmp_path)
+    pred = Predictor.from_checkpoint(tmp_path, device="cpu")
+    batches = []
+    run = pred.predict_probs
+    pred.predict_probs = lambda x: batches.append(len(x)) or run(x)
+    service = InferenceService(pred, max_batch=max_batch, builder=lambda: pred)
+    service.warmup()
+    assert service._bucket_sizes() == [1] and batches == [1]
+    service.warmup(all_buckets=True)
+    want = jax_serve.InferenceService._bucket_sizes(
+        SimpleNamespace(_pinned=None, _warm_all=True, max_batch=max_batch))
+    assert service._bucket_sizes() == want and batches[1:] == want
+    assert service.stats.device_programs == 0  # warmup is not traffic
+    del batches[:]
+    service.reload()  # the replacement is warmed on the same ladder
+    assert batches == want
+
+
+def test_serve_cli_in_a_subprocess(tmp_path):
+    """An export served over HTTP on the CPU: /predict against the same
+    export in this process, SIGHUP reloads it, SIGTERM drains and exits 0."""
+    tiny_checkpoint(tmp_path)
+    port_export.export_for_inference(tmp_path, "checkpoint_best", tmp_path / "deploy")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "nvit_tpu_torch.serve", "--export", "--checkpoint", str(tmp_path / "deploy"),
+         "--port", "0", "--device", "cpu", "--max-batch", "4", "--warm-buckets"],
+        cwd=tmp_path, env={**os.environ, "PYTHONPATH": str(REPO)}, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    lines: queue.Queue = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(x) for x in proc.stdout], daemon=True).start()
+
+    def wait_for(*texts: str) -> str:
+        while True:
+            line = lines.get(timeout=120)
+            if line.startswith(texts):
+                return line
+
+    try:
+        port = int(wait_for("serving").rsplit(":", 1)[1])
+        image = np.random.default_rng(0).integers(0, 256, (3, 16, 16), dtype=np.uint8)
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request("POST", "/predict", body=json.dumps({"images": image.tolist(), "top_k": 10}),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        served = json.loads(resp.read())
+        conn.close()
+        assert resp.status == 200
+        probs = Predictor.from_export(tmp_path / "deploy", device="cpu").predict_probs(image[None])[0]
+        np.testing.assert_allclose(served["probs"][0], probs[served["labels"][0]], rtol=1e-6)
+        proc.send_signal(signal.SIGHUP)
+        assert wait_for("reloaded", "reload failed").startswith("reloaded")
+        proc.send_signal(signal.SIGTERM)
+        wait_for("drained; exiting")
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()

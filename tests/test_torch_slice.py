@@ -7,16 +7,13 @@
   ``normalize → vit_apply → softmax`` with the JAX package's Pallas kernels
   forced through the generic interpreter (tests/kernel_force.py), in the
   fp32 and bf16 policies, plus a ``/predict`` round-trip over HTTP;
-* the serving layer's HTTP contract;
+* the serving layer's reload (its HTTP contract is tests/test_torch_serve.py);
 * the package imports no jax, and the kernel build raises without nvcc.
 """
 
-import http.client
 import json
 import subprocess
 import sys
-import threading
-from http.server import ThreadingHTTPServer
 
 import jax
 import jax.numpy as jnp
@@ -33,8 +30,9 @@ from nvit_tpu_torch.configs import ViTConfig as PortViTConfig
 from nvit_tpu_torch.infer import Predictor
 from nvit_tpu_torch.models.presets import preset
 from nvit_tpu_torch.models.vit import ViT
-from nvit_tpu_torch.serve import InferenceService, _pad_batch, make_handler
+from nvit_tpu_torch.serve import InferenceService
 from tests.torch_parity import port_config, random_jax_params
+from tests.torch_serving import _FakePredictor, _request, serving
 
 torch.set_num_threads(1)
 
@@ -140,23 +138,6 @@ def test_slice_matches_jax_with_kernels(slice_case, policy):
     np.testing.assert_allclose(probs, ref[policy], **tol)
 
 
-def _request(addr, method, path, body=None, content_type="application/json"):
-    conn = http.client.HTTPConnection(*addr, timeout=60)
-    headers = {"Content-Type": content_type} if body is not None else {}
-    conn.request(method, path, body=body, headers=headers)
-    resp = conn.getresponse()
-    payload = json.loads(resp.read())
-    conn.close()
-    return resp.status, payload
-
-
-def serving(service):
-    srv = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(service))
-    thread = threading.Thread(target=srv.serve_forever, daemon=True)
-    thread.start()
-    return srv, thread
-
-
 def test_predict_round_trip_matches_jax(slice_case):
     cfg, params, images, ref = slice_case
     model_cfg = port_config(cfg.model)
@@ -188,88 +169,6 @@ def test_predict_round_trip_matches_jax(slice_case):
 
 
 # ------------------------------------------------------------ serving layer
-class _FakePredictor:
-    """Stands in for the model: probs are a function of the pixel sum."""
-
-    def __init__(self, fail=False):
-        self.cfg = PortViTConfig(image_size=4, n_layer=1, n_head=1, n_embd=8, num_classes=5,
-                             local_patch_size=2, global_patch_size=4, use_nvit=True)
-        self.fail = fail
-        self.batches = []
-
-    def predict_probs(self, images):
-        if self.fail:
-            raise RuntimeError("device lost")
-        self.batches.append(images.shape[0])
-        s = images.reshape(images.shape[0], -1).astype(np.float32).sum(-1, keepdims=True)
-        logits = np.sin(s + np.arange(5, dtype=np.float32))
-        e = np.exp(logits - logits.max(-1, keepdims=True))
-        return e / e.sum(-1, keepdims=True)
-
-
-@pytest.mark.parametrize("b,want", [(1, 1), (3, 4), (5, 8), (8, 8)])
-def test_pad_batch_to_power_of_two(b, want):
-    imgs = np.ones((b, 3, 4, 4), np.uint8)
-    padded, real = _pad_batch(imgs, 8)
-    assert padded.shape[0] == want and real == b
-    assert (padded[b:] == 0).all()
-
-
-@pytest.mark.parametrize("body,content_type,code", [
-    (b"{not json", "application/json", 400),
-    (json.dumps([1, 2]).encode(), "application/json", 400),
-    (json.dumps({"images": np.zeros((1, 3, 5, 5)).tolist()}).encode(), "application/json", 400),
-    (json.dumps({"images": np.zeros((3, 4, 4)).tolist(), "top_k": 9}).encode(), "application/json", 400),
-    (json.dumps({"images": np.full((3, 4, 4), 256.0).tolist()}).encode(), "application/json", 400),
-    (b"\x00" * 7, "application/octet-stream", 400),
-])
-def test_bad_requests_are_400(body, content_type, code):
-    service = InferenceService(_FakePredictor(), max_batch=4)
-    srv, thread = serving(service)
-    try:
-        status, out = _request(srv.server_address, "POST", "/predict", body, content_type)
-        assert status == code and "error" in out
-        assert service.stats.snapshot()["errors"] == 1
-    finally:
-        srv.shutdown()
-        srv.server_close()
-        thread.join(timeout=10)
-
-
-def test_device_failure_is_500_and_dynamic_batching_coalesces():
-    service = InferenceService(_FakePredictor(fail=True), max_batch=4)
-    srv, thread = serving(service)
-    try:
-        body = json.dumps({"images": np.zeros((3, 4, 4)).tolist()}).encode()
-        status, out = _request(srv.server_address, "POST", "/predict", body)
-        assert status == 500 and "device lost" in out["error"]
-    finally:
-        srv.shutdown()
-        srv.server_close()
-        thread.join(timeout=10)
-
-    fake = _FakePredictor()
-    batched = InferenceService(fake, max_batch=8, batch_window_ms=200)
-    results = [None] * 4
-    rng = np.random.default_rng(5)
-    imgs = [rng.integers(0, 256, (1, 3, 4, 4), dtype=np.uint8) for _ in range(4)]
-
-    def call(i):
-        results[i] = batched.predict(imgs[i], top_k=2)
-
-    workers = [threading.Thread(target=call, args=(i,)) for i in range(4)]
-    for w in workers:
-        w.start()
-    for w in workers:
-        w.join(timeout=30)
-    batched.close()
-    assert all(not w.is_alive() for w in workers)
-    direct = InferenceService(_FakePredictor(), max_batch=8)
-    for i in range(4):
-        assert results[i] == direct.predict(imgs[i], top_k=2)
-    assert sum(fake.batches) >= 4 and len(fake.batches) < 4  # coalesced
-
-
 def test_reload_swaps_model_and_keeps_geometry():
     service = InferenceService(_FakePredictor(), max_batch=4, builder=_FakePredictor)
     service.reload()

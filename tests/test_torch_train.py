@@ -9,16 +9,9 @@
 * the same with ``bias=True`` (``settings.yaml``'s setting), nViT and
   baseline, in fp32 (the K6 twins on the CPU), and one step's bias and
   ``suv`` gradients against ``jax.grad`` of the loss that step takes;
-* the data path: ``make_synthetic`` arrays, epoch order and batches equal to
-  the JAX package's;
-* the trainer: a few iterations on tiny synthetic data write
-  ``metrics.jsonl``; several devices and orbax checkpoints raise at
-  construction, and the checkpoint settings, ported since, are taken; the
-  datasets, ported since, read their files or name the missing layout.
+* the data path is tests/test_torch_train_data.py, the trainer
+  tests/test_torch_trainer.py.
 """
-
-import dataclasses
-import json
 
 import jax
 import jax.numpy as jnp
@@ -30,13 +23,12 @@ from nvit_tpu.configs import schema as jax_schema
 from nvit_tpu.data.augment import normalize as jax_normalize
 from nvit_tpu_torch import configs as port_schema
 from nvit_tpu_torch.ckpt.convert import state_dict_from_jax
-from nvit_tpu_torch.data.augment import normalize, preprocess
+from nvit_tpu_torch.data.augment import normalize
 from nvit_tpu_torch.models.presets import preset
 from nvit_tpu_torch.models.vit import ViT
 from nvit_tpu_torch.train.optim import init_fused_adamw
 from nvit_tpu_torch.train.state import TrainState
 from nvit_tpu_torch.train.step import make_train_step
-from nvit_tpu_torch.train.trainer import Trainer
 from tests.torch_parity import baseline_params, random_jax_params
 
 torch.set_num_threads(1)
@@ -250,211 +242,3 @@ def test_bias_and_suv_gradients_match_jax(jax_bias_steps, mode):
         assert rel <= 1e-4, f"{name}: relative L2 {rel:.3e}"
         checked += 1
     assert checked >= len(names) - (1 if mode == "nvit" else 7)
-
-
-# ------------------------------------------------------------------ data
-def test_make_synthetic_is_the_jax_draw():
-    """The chunked draw yields the JAX package's arrays from the same seed
-    (32 px, one chunk boundary crossed with a small chunk)."""
-    from nvit_tpu.data.datasets import make_synthetic as jax_make_synthetic
-    from nvit_tpu_torch.data import datasets
-
-    want = jax_make_synthetic(num_examples=300, image_size=32, num_classes=7, seed=3)
-    got = datasets.make_synthetic(num_examples=300, image_size=32, num_classes=7, seed=3)
-    np.testing.assert_array_equal(got.images, want.images)
-    np.testing.assert_array_equal(got.labels, want.labels)
-    saved = datasets._NOISE_CHUNK
-    datasets._NOISE_CHUNK = 3 * 32 * 32 * 7  # 7 images per chunk
-    try:
-        np.testing.assert_array_equal(
-            datasets.make_synthetic(num_examples=300, image_size=32, num_classes=7, seed=3).images,
-            want.images)
-    finally:
-        datasets._NOISE_CHUNK = saved
-
-
-def test_epoch_order_and_batches_are_the_jax_pipeline():
-    from nvit_tpu.data.datasets import ArrayDataset as JaxArrayDataset
-    from nvit_tpu.data.pipeline import iterate_array as jax_iterate
-    from nvit_tpu_torch.data.datasets import ArrayDataset
-    from nvit_tpu_torch.data.pipeline import device_prefetch, iterate_array
-
-    rng = np.random.default_rng(22)
-    imgs = rng.integers(0, 256, (37, 3, 4, 4), dtype=np.uint8)
-    labels = rng.integers(0, 5, 37).astype(np.int32)
-    for kw in (dict(epoch=2, shuffle=True), dict(epoch=0, shuffle=False, drop_last=False),
-               dict(epoch=1, shuffle=True, start_batch=2)):
-        want = list(jax_iterate(JaxArrayDataset(imgs, labels, 5), batch_size=8, seed=4, **kw))
-        got = list(iterate_array(ArrayDataset(imgs, labels, 5), batch_size=8, seed=4, **kw))
-        assert len(got) == len(want)
-        for (gi, gl), (wi, wl) in zip(got, want):
-            np.testing.assert_array_equal(gi, wi)
-            np.testing.assert_array_equal(gl, wl)
-    x, y = next(device_prefetch(iter(got[:1]), "cpu"))
-    assert x.dtype == torch.uint8 and y.dtype == torch.int64
-
-
-def test_preprocess_normalizes_and_autoaugment_raises():
-    """AutoAugment is ported (tests/test_torch_autoaugment.py): a train
-    batch with a generator is augmented, then normalized; without one, or
-    with AutoAugment off, or for eval, preprocess is the JAX normalize."""
-    from nvit_tpu_torch.data.autoaugment import auto_augment_batch, step_generator
-
-    imgs = torch.from_numpy(np.random.default_rng(23).integers(0, 256, (8, 3, 8, 8), dtype=np.uint8))
-    np.testing.assert_array_equal(preprocess(imgs, train=True, auto_augment=False).numpy(),
-                                  np.asarray(jax_normalize(jnp.asarray(imgs.numpy()))))
-    assert torch.equal(preprocess(imgs, train=False), normalize(imgs))
-    key = np.array([0, 1], np.uint32)
-    augmented = preprocess(imgs, step_generator(key, 3), train=True, auto_augment=True, dataset="cifar100")
-    assert torch.equal(augmented, normalize(auto_augment_batch(imgs, step_generator(key, 3), dataset="cifar100")))
-    assert not torch.equal(augmented, normalize(imgs))
-
-
-# ------------------------------------------------------------------ trainer
-def trainer_config(out_dir, **overrides):
-    model = preset("nvit-tiny4")
-    model.update(n_layer=1, num_classes=10, image_size=16, flash_attn=True)
-    cfg = port_schema.Config(
-        model=port_schema.ViTConfig(**model),
-        training=port_schema.TrainingConfig(batch_size=8, max_iters=6, eval_interval=4,
-                                            log_interval=2, eval_iters=2,
-                                            always_save_checkpoint=False),
-        optimizer=port_schema.OptimizerConfig(warmup_iters=2, lr_decay_iters=10),
-        system=port_schema.SystemConfig(remat=False, dtype="float32", quick_validation_size=16),
-        data=port_schema.DataConfig(dataset="synthetic", out_dir=str(out_dir),
-                                    augmentation=port_schema.AugmentationConfig(auto_augment=False)),
-    )
-    for section, kw in overrides.items():
-        cfg = dataclasses.replace(cfg, **{section: dataclasses.replace(getattr(cfg, section), **kw)})
-    return cfg
-
-
-def test_trainer_writes_metrics_and_finishes(tmp_path):
-    trainer = Trainer(trainer_config(tmp_path), device="cpu")
-    trainer.train()
-    lines = [json.loads(x) for x in (tmp_path / "metrics.jsonl").read_text().splitlines()]
-    evals = [x for x in lines if "val/loss" in x]
-    logs = [x for x in lines if "train/batch_loss" in x]
-    assert [x["_step"] for x in evals] == [0, 4]
-    assert [x["train/iter"] for x in logs] == [2, 4, 6]
-    for x in logs:
-        assert np.isfinite([x["train/batch_loss"], x["train/class_loss"], x["train/grad_norm"],
-                            x["optimizer/learning_rate"], x["train/batch_time_ms"]]).all()
-        assert "train/mfu" in x and x["train/mfu"] is None  # no device peak on the CPU
-    assert np.isfinite([evals[-1]["val/loss"], evals[-1]["train/loss"]]).all()
-    assert (tmp_path / "finished").read_text() == "max_iters:6"
-    assert len((tmp_path / "stat").read_text().splitlines()) == 3
-    assert trainer.iter_num == 6 and trainer.state.step == 6
-
-
-def test_entry_points_default_to_the_card(tmp_path):
-    """Predictor, Predictor.from_config and Trainer run on the card unless
-    the caller asks for the CPU: built with the default device where there
-    is no card, each fails for want of CUDA instead of making a CPU model."""
-    import inspect
-
-    from nvit_tpu_torch.infer import Predictor
-
-    for fn in (Predictor.__init__, Predictor.from_config, Trainer.__init__):
-        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__
-    if torch.cuda.is_available():
-        return
-    cfg = trainer_config(tmp_path)
-    for build in (lambda: Predictor(ViT(cfg.model, device="cpu"), cfg.model),
-                  lambda: Predictor.from_config(cfg), lambda: Trainer(cfg)):
-        with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
-            build()
-
-
-@pytest.mark.parametrize("kw", [dict(init_from="resume"), dict(eval_only=True),
-                                dict(always_save_checkpoint=True)])
-def test_trainer_takes_the_checkpoint_settings(tmp_path, kw):
-    """Ported with the checkpoint files (tests/test_torch_ckpt.py has the
-    lifecycle): each setting is taken, and init_from="resume" restores the
-    checkpoint a Trainer wrote, which a fresh init does not reproduce."""
-    first = Trainer(trainer_config(tmp_path), device="cpu")
-    with torch.no_grad():
-        for p in first.state.model.parameters():
-            p.add_(1.0)
-    first.save()
-    first.cleanup()  # joins the write
-    trainer = Trainer(trainer_config(tmp_path, training=kw, data=dict(checkpoint_dir=str(tmp_path))),
-                      device="cpu")
-    ((field, value),) = kw.items()
-    assert getattr(trainer.cfg.training, field) == value
-    restored = all(torch.equal(a, b) for a, b in
-                   zip(first.state.model.parameters(), trainer.state.model.parameters()))
-    assert restored == (field == "init_from")
-
-
-@pytest.mark.parametrize("section,kw,item", [
-    ("system", dict(model_parallel=2), "multi-GPU"),
-    ("data", dict(checkpoint_backend="orbax"), "do-not-port"),
-])
-def test_trainer_refuses_unported_settings(tmp_path, section, kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        Trainer(trainer_config(tmp_path, **{section: kw}), device="cpu")
-
-
-@pytest.mark.parametrize("name", ["cifar10", "cifar100", "imagenet", "digits"])
-def test_unported_datasets_raise(tmp_path, name):
-    """Every dataset is ported (tests/test_torch_data.py): without their
-    files the CIFAR and ImageNet readers raise ``FileNotFoundError`` naming
-    the layout; digits, bundled with scikit-learn, equal the JAX package's."""
-    from nvit_tpu.data.datasets import load_dataset as jax_load_dataset
-    from nvit_tpu_torch.data.datasets import load_dataset
-
-    if name == "digits":
-        got, want = load_dataset(name, tmp_path, image_size=16), jax_load_dataset(name, tmp_path, image_size=16)
-        np.testing.assert_array_equal(got.images, want.images)
-        np.testing.assert_array_equal(got.labels, want.labels)
-        return
-    with pytest.raises(FileNotFoundError, match="imagenet" if name == "imagenet" else "data.download=true"):
-        load_dataset(name, tmp_path)
-
-
-# ------------------------------------------------- the JAX trainer's warnings
-@pytest.fixture
-def port_log(caplog):
-    """caplog on the port's logger: ``setup_logging`` resets the root
-    logger's handlers (caplog's among them), not the named logger's."""
-    import logging
-
-    logger = logging.getLogger("nvit_tpu_torch")
-    logger.addHandler(caplog.handler)
-    yield caplog
-    logger.removeHandler(caplog.handler)
-
-
-def drift_warnings(log) -> list:
-    return [r for r in log.records if "sqk_eff drifted" in r.getMessage()]
-
-
-@pytest.mark.parametrize("mode,warned", [("bounded", 1), ("rowmax", 0), ("auto", 0)])
-def test_sqk_drift_warns_once_under_bounded_only(tmp_path, port_log, mode, warned):
-    """≙ nvit_tpu/train/trainer.py:395-405: the bound past 40 is logged once
-    per Trainer, and only under the static "bounded" stabilizer."""
-    trainer = Trainer(trainer_config(tmp_path, model=dict(bounded_softmax=mode)), device="cpu")
-    first = trainer._sqk_drift_metrics()
-    with torch.no_grad():  # scale every sqk so that the bound passes 40
-        factor = float(np.sqrt(2 * 40.0 / first["scales/attn_bound"]))
-        for name, p in trainer.state.model.named_parameters():
-            if name.endswith("sqk"):
-                p.mul_(factor)
-    port_log.clear()
-    metrics = [trainer._sqk_drift_metrics() for _ in range(2)]
-    assert all(m["scales/attn_bound"] > 40.0 for m in metrics)
-    assert len(drift_warnings(port_log)) == warned
-    if warned:
-        assert f"{metrics[0]['scales/sqk_eff_max']:.2f}" in drift_warnings(port_log)[0].getMessage()
-
-
-def test_quick_validation_without_full_eval_warns_at_construction(tmp_path, port_log):
-    """≙ nvit_tpu/train/trainer.py:288-299."""
-    Trainer(trainer_config(tmp_path, system=dict(quick_validation=True),
-                           training=dict(full_eval_interval=0)), device="cpu")
-    assert any("quick_validation is on with full_eval_interval=0" in r.getMessage()
-               for r in port_log.records)
-    port_log.clear()
-    Trainer(trainer_config(tmp_path, training=dict(full_eval_interval=2)), device="cpu")
-    assert not any("quick_validation" in r.getMessage() for r in port_log.records)

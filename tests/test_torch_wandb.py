@@ -27,7 +27,7 @@ import torch
 
 from nvit_tpu_torch.obs.metrics import WANDB_HIST_EDGES, MetricsWriter
 from nvit_tpu_torch.train.trainer import Trainer
-from tests.test_torch_ckpt import trainer_config
+from tests.torch_ckpt_cases import trainer_config
 
 torch.set_num_threads(1)
 
