@@ -162,6 +162,26 @@ then this slice's path:
                batch window off and on, bf16 and int8; ``debug_model()`` on
                the packaged settings (its kernels once a pass, two PNGs).
 
+15. data parallel — nViT-B/16 (flagship_config(), global batch 32, bf16):
+               two ranks in two processes on the one card (``chip_smoke.py
+               --dp-worker``; NCCL refuses two ranks on one card, so gloo,
+               which stages each CUDA tensor through the host), each
+               forming its group and taking its 16 rows through ``Trainer``
+               and ``make_train_step``: the loss and per-group gradients of
+               the global batch against one process's (phase 8's bounds),
+               one step launching K1–K4 13 times and the prologue 26 and no
+               other kernel, the parameters bit-equal across ranks after 3
+               steps, the step's ms and the gradient buffer's all-reduce's ms
+               (gloo through the host, not NVLink); ``python -m
+               torch.distributed.run --nproc_per_node=1 -m nvit_tpu_torch``
+               (one rank, NCCL) on synthetic 224 px data with path A's model:
+               exit 0, ``finished``, its profile_steps trace holding K1, K2
+               and K6, and the one-rank NCCL all-reduce's ms of the gradient
+               buffer; ``Predictor(data_parallel=True, devices=[cuda:0,
+               cuda:0])`` served as in phase 6 at batches 1, 4 and 32 (K1, K3
+               and the prologue 13 times a replica-forward) against the one
+               replica's forward.
+
 K9 is not on any main path (T = 784 ≤ 1024 takes K8), nor is K10 (only the
 bench runs it), so their launch counts in the summary are 0 per training
 step; the kernels phase checks both, the bench phase runs K10 (its count
@@ -171,7 +191,9 @@ from the last full path that runs each, the Kohonen flagship's for K1–K4
 and the prologue; ``path_launches`` per full path, per step of phase 13's
 bf16-moment step, and per forward of phase 14's modes — ``int8``,
 ``aot-32``, ``aot-32-int8``, ``aot-symbolic`` — and the debug CLI's
-forward; ``profile_launches`` per profile); the last line is
+forward, per step of a rank of phase 15's two, ``data-parallel-step``, and
+per replica-forward of its two replicas, ``data-parallel-forward``;
+``profile_launches`` per profile); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -958,7 +980,7 @@ def get(addr, path):
     return payload
 
 
-def serve_phase(title, path, cfg, pred, plain) -> dict:
+def serve_phase(title, path, cfg, pred, plain, *, replicas: int = 1, versus: str = "the plain path") -> dict:
     from http.server import ThreadingHTTPServer
 
     from nvit_tpu_torch.data.augment import normalize
@@ -1002,7 +1024,9 @@ def serve_phase(title, path, cfg, pred, plain) -> dict:
     check(forwards == 3, f"expected 3 device forwards, /stats counts {forwards}")
     per_forward = n_passes(cfg.model)
     print(f"launches in the served run: {launches} over {forwards} forwards")
-    check_launches(launches, per_pass(PATHS[path]["forward"], per_forward * forwards), f"serving {title}")
+    # each forward runs once on every replica of a data-parallel Predictor
+    check_launches(launches, per_pass(PATHS[path]["forward"], per_forward * forwards * replicas),
+                   f"serving {title}")
 
     for res, b in ((r1, 1), (r4, 4), (r32, 32)):
         labels, probs = np.asarray(res["labels"]), np.asarray(res["probs"])
@@ -1022,11 +1046,11 @@ def serve_phase(title, path, cfg, pred, plain) -> dict:
     dl = max_err(logits_k, logits_p)
     dp = np.abs(full - plain_probs).max()
     top1 = float((full.argmax(-1) == plain_probs.argmax(-1)).mean())
-    print(f"kernel vs plain path, batch 4: max|Δlogit| {dl:.3e} (logit std {spread:.3e}, "
+    print(f"served vs {versus}, batch 4: max|Δlogit| {dl:.3e} (logit std {spread:.3e}, "
           f"bound {LOGIT_TOL} × std), max|Δprob| {dp:.3e}, top-1 agreement {top1:.2f}")
-    check(dl <= LOGIT_TOL * spread, "served logits disagree with the plain path")
+    check(dl <= LOGIT_TOL * spread, f"served logits disagree with {versus}")
     check(np.all(np.abs(full - plain_probs) <= PROB_RTOL * plain_probs + 1e-6),
-          "served probabilities disagree with the plain path")
+          f"served probabilities disagree with {versus}")
     return launches
 
 
@@ -1963,7 +1987,7 @@ def profile_step(name: str, cfg, smi: str) -> dict:
     aug = d.augmentation.enabled and d.augmentation.auto_augment
     check(cfg.system.remat and aug and m.bias and tc.batch_size == 512 and m.image_size == 32,
           f"{name}: the profile's config drifted")
-    check_ported(cfg, torch.device("cuda"))
+    check_ported(cfg)
     ds = load_dataset(d.dataset, d.data_dir, train=True, image_size=m.image_size, num_classes=m.num_classes)
     batches = device_prefetch(make_epoch_iterator(ds, batch_size=tc.batch_size, epoch=0, seed=tc.seed,
                                                   shuffle=True, num_workers=d.num_workers), "cuda", size=d.prefetch)
@@ -2871,6 +2895,248 @@ def serving_modes_phase(smi: str) -> dict:
     return by_path
 
 
+# the data-parallel phase: two ranks of the flagship step on the one card
+DP_WORLD = 2
+DP_TIMEOUT_S = 300  # the group's timeout and the wait for its workers
+DP_CLI_ITERS = 4
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dp_worker(out: Path) -> int:
+    """One rank of phase 15's two-rank run: ``python3 chip_smoke.py
+    --dp-worker OUT`` with ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
+    ``MASTER_PORT`` and ``LOCAL_RANK=0`` from the parent, so both ranks take
+    cuda:0 (NCCL refuses two ranks on one card: the group is gloo, which
+    stages every CUDA tensor through the host).  Writes ``OUT/rank<r>.json``;
+    the parent checks it."""
+    import tempfile
+
+    from nvit_tpu_torch.models.presets import flagship_config
+    from nvit_tpu_torch.parallel.mesh import all_reduce_mean_, any_flag, broadcast_, destroy, init_data_parallel
+    from nvit_tpu_torch.scripts.step_time import step_ms, sync_step
+    from nvit_tpu_torch.train.step import make_loss_fn, make_train_step
+    from nvit_tpu_torch.train.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    group = init_data_parallel("cuda", backend="gloo", timeout_s=DP_TIMEOUT_S)
+    r = group.rank
+    base = flagship_config()
+    cfg = dataclasses.replace(
+        base, system=dataclasses.replace(base.system, use_ddp=True),
+        data=dataclasses.replace(base.data, dataset="synthetic",
+                                 out_dir=tempfile.mkdtemp(prefix=f"chip_smoke_dp{r}_")))
+    trainer = Trainer(cfg, device="cuda", group=group)  # rank 0's weights and moments, broadcast
+    state, model = trainer.state, trainer.state.model
+    params = dict(model.named_parameters())
+    _, images, labels = batch32(cfg.model)
+    b = images.shape[0] // group.world
+    rows = slice(r * b, (r + 1) * b)
+    res: dict = {"rank": r, "device": str(trainer.device)}
+
+    # the global batch's loss and gradients: this rank's rows, then the mean over ranks
+    loss_fn = make_loss_fn(cfg)
+    loss, _ = loss_fn(model, images[rows], labels[rows])
+    loss.backward()
+    grads = {n: p.grad for n, p in params.items() if p.grad is not None}
+    dp_loss = loss.detach().float().reshape(1)
+    all_reduce_mean_(group, [*grads.values(), dp_loss])
+    if r == 0:  # against this process's one-process pass over all 32 rows
+        dp = {n: g.clone() for n, g in grads.items()}
+        model.zero_grad(set_to_none=True)
+        one_loss, _ = loss_fn(model, images, labels)
+        one_loss.backward()
+        one = {n: p.grad for n, p in params.items() if p.grad is not None}
+        res["loss"] = [dp_loss.item(), one_loss.item()]
+        res["grad_names"] = [sorted(dp), sorted(one)]
+        res["grad_rel_l2"] = {}
+        import re
+
+        for name, pattern in GRAD_GROUPS.items():
+            names = [n for n in one if re.fullmatch(pattern, n)]
+            res["grad_rel_l2"][name] = rel_l2(torch.cat([dp[n].flatten() for n in names]),
+                                              torch.cat([one[n].flatten() for n in names]))
+        del dp, one
+    del grads
+    model.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+
+    # one step counted from 0, then two timed: 3 steps in all
+    step = make_train_step(cfg, log_norms=False, group=group)
+    reset_counts()
+    sync_step(step, state, images[rows], labels[rows])
+    res["launches"] = read_counts()
+    res["step_ms"] = step_ms(step, state, images[rows], labels[rows], 2)
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+
+    # bit-equal parameters: rank 0's flat copy against this rank's own
+    mine = torch.cat([p.detach().reshape(-1) for p in params.values()])
+    theirs = mine.clone()
+    broadcast_(group, [theirs])
+    res["bit_equal"] = not any_flag(group, not torch.equal(as_bytes(mine), as_bytes(theirs)))
+    del theirs
+
+    # the gradient buffer's all-reduce alone: one fp32 value a parameter
+    buf = torch.ones_like(mine)
+    res["grad_numel"] = buf.numel()
+    res["allreduce_ms"] = cuda_ms(lambda: all_reduce_mean_(group, [buf]), iters=3, warmup=1)
+    res["allreduce_ok"] = bool(torch.all(buf == 1.0).item())
+    destroy(group)
+    (out / f"rank{r}.json").write_text(json.dumps(res))
+    return 0
+
+
+def nccl_allreduce_ms(numel: int) -> float:
+    """The flat fp32 gradient buffer's mean all-reduce in a one-rank NCCL
+    group formed in this process (the launcher's variables set here, then
+    put back): what a rank pays beside its step on one card — no link is
+    crossed."""
+    from nvit_tpu_torch.parallel.mesh import all_reduce_mean_, destroy, init_data_parallel
+
+    keys = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+    saved = {k: os.environ.get(k) for k in keys}
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                      MASTER_PORT=str(free_port()))
+    try:
+        group = init_data_parallel("cuda", timeout_s=DP_TIMEOUT_S)
+        buf = torch.ones(numel, device="cuda")
+        ms = cuda_ms(lambda: all_reduce_mean_(group, [buf]), iters=10, warmup=2)
+        check(bool(torch.all(buf == 1.0).item()), "the one-rank NCCL mean changed the buffer")
+        destroy(group)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return ms
+
+
+def data_parallel_phase(smi: str) -> dict:
+    """Phase 15 → path_launches of the two-rank step (per rank, one step)
+    and of the two-replica serving forward (per replica-forward)."""
+    import shutil
+    import tempfile
+
+    from nvit_tpu_torch.configs import Config, ViTConfig
+    from nvit_tpu_torch.infer import Predictor
+    from nvit_tpu_torch.models.presets import flagship_config, preset
+
+    phase("data parallel nViT-B/16 (flagship_config: global batch 32, bf16): two ranks on cuda:0 over gloo, "
+          "one rank under torch.distributed.run over NCCL, Predictor(data_parallel=True) over HTTP")
+    t_phase = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_dp_"))
+    try:
+        # two ranks, two processes, one card, gloo
+        port = str(free_port())
+        env = {k: v for k, v in os.environ.items() if not k.startswith("NVIT_")}
+        env["PYTHONPATH"] = str(Path(__file__).resolve().parent)
+        logs = [open(root / f"worker{r}.log", "w+") for r in range(DP_WORLD)]
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--dp-worker", str(root)],
+            env={**env, "RANK": str(r), "WORLD_SIZE": str(DP_WORLD), "LOCAL_RANK": "0",
+                 "MASTER_ADDR": "localhost", "MASTER_PORT": port},
+            stdout=logs[r], stderr=subprocess.STDOUT) for r in range(DP_WORLD)]
+        t0 = time.perf_counter()
+        try:
+            for p in procs:
+                p.wait(timeout=max(1.0, DP_TIMEOUT_S - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs:  # stop every process this script starts
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        worker_s = time.perf_counter() - t0
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            log.seek(0)
+            text = log.read()
+            log.close()
+            check(p.returncode == 0, f"data-parallel rank {r} exited {p.returncode}:\n" + text[-4000:])
+        res = [json.loads((root / f"rank{r}.json").read_text()) for r in range(DP_WORLD)]
+        m = flagship_config().model
+        want = per_pass(PATHS["nvit"]["step"], n_passes(m))
+        for r, got in enumerate(res):
+            print(f"rank {r} on {got['device']}: launches in one step of its 16 rows {got['launches']}")
+            check_launches(got["launches"], want, f"data-parallel rank {r}")
+            check(got["allreduce_ok"], f"rank {r}: the mean of two equal buffers is not the buffer")
+        check(all(got["bit_equal"] for got in res), "the ranks' parameters differ after 3 steps")
+        dp_loss, one_loss = res[0]["loss"]
+        gap = abs(dp_loss - one_loss) / abs(one_loss)
+        names_dp, names_one = res[0]["grad_names"]
+        print(f"global batch 32: loss over two ranks {dp_loss:.6f}, one process {one_loss:.6f} "
+              f"(relative gap {gap:.3e}, bound {TRAIN_LOSS_RTOL})")
+        for name, rel in res[0]["grad_rel_l2"].items():
+            print(f"grad {name}: two ranks against one process, relative L2 {rel:.3e}")
+        check(gap <= TRAIN_LOSS_RTOL, "the two ranks' loss disagrees with one process's")
+        check(names_dp == names_one, "the two ranks reduce other gradients than one process has")
+        check(max(res[0]["grad_rel_l2"].values()) <= GRAD_REL_L2, "the two ranks' gradients disagree")
+        gib = res[0]["grad_numel"] * 4 / 2**30
+        for got in res:
+            print(f"rank {got['rank']}: step {got['step_ms']:.1f} ms (16 rows, its all-reduce included), "
+                  f"peak {got['peak_gib']:.2f} GiB; all-reduce of the {gib:.3f} GiB fp32 gradient buffer "
+                  f"{got['allreduce_ms']:.1f} ms — gloo through the host, both ranks on one card, not NVLink "
+                  f"[{smi}]")
+        print(f"three steps on two ranks, bit-equal parameters after them; workers {worker_s:.1f} s")
+
+        # one rank under the real launcher, NCCL: the CLI on path A, synthetic 224 px data
+        out = root / "cli"
+        cli_cfg = flagship_config(bias=True)
+        cli_env = {**env_of(cli_cfg), "NVIT_DATA__DATASET": "synthetic", "NVIT_DATA__OUT_DIR": str(out),
+                   "NVIT_DATA__CHECKPOINT_DIR": str(out), "NVIT_DATA__AUGMENTATION__AUTO_AUGMENT": "false",
+                   "NVIT_TRAINING__MAX_ITERS": str(DP_CLI_ITERS), "NVIT_TRAINING__EVAL_INTERVAL": "100",
+                   "NVIT_TRAINING__EVAL_ITERS": "1", "NVIT_TRAINING__LOG_INTERVAL": "1",
+                   "NVIT_SYSTEM__QUICK_VALIDATION_SIZE": "32", "NVIT_SYSTEM__PROFILE_STEPS": "2",
+                   "NVIT_SYSTEM__USE_DDP": "true"}
+        t0 = time.perf_counter()
+        cli = Cli(["torch.distributed.run", "--standalone", "--nproc_per_node=1", "-m", "nvit_tpu_torch"],
+                  cli_env, root, "torchrun -m nvit_tpu_torch")
+        lines = cli.run(timeout=DP_TIMEOUT_S)
+        cli_s = time.perf_counter() - t0
+        check(any("data parallel: rank 0 of 1 on cuda:0" in x for x in lines), "the CLI formed no group")
+        check((out / "finished").read_text() == f"max_iters:{DP_CLI_ITERS}", "the CLI under torchrun did not finish")
+        traces = list((out / "profile").glob("*.pt.trace.json"))
+        check(len(traces) == 1, f"{len(traces)} trace files under out_dir/profile")
+        text = traces[0].read_text()
+        missing = [k for k in TRACE_KERNELS if k not in text]
+        check(not missing, f"the launcher's run traced no {missing}")
+        logged = [json.loads(x) for x in (out / "metrics.jsonl").read_text().splitlines()]
+        steps = [x for x in logged if "train/batch_loss" in x]
+        check([x["train/iter"] for x in steps] == list(range(1, DP_CLI_ITERS + 1))
+              and all(math.isfinite(x["train/batch_loss"]) for x in steps), "the CLI's logged steps")
+        step_list = ", ".join(f"{x['train/batch_time_ms']:.1f}" for x in steps)
+        print(f"python -m torch.distributed.run --nproc_per_node=1 -m nvit_tpu_torch (path A, NCCL, one rank): "
+              f"exit 0 in {cli_s:.1f} s with the process start; its trace holds K1, K2 (both walks), K6's "
+              f"forward and backward and the prologue; step ms {step_list} [{smi}]")
+        nccl_ms = nccl_allreduce_ms(res[0]["grad_numel"])
+        print(f"NCCL mean all-reduce of the {gib:.3f} GiB gradient buffer on ONE rank: {nccl_ms:.3f} ms "
+              f"(a one-rank figure: no link crossed) [{smi}]")
+
+        # two replicas on cuda:0 behind the HTTP service, against the one replica
+        cfg = Config(model=ViTConfig(**preset("nvit-b16"), num_classes=1000))
+        pred = Predictor.from_config(cfg, seed=0, device="cuda", data_parallel=True,
+                                     devices=["cuda:0", "cuda:0"])
+        check(pred.batch_multiple == 2 and pred.replicas[0] is not pred.replicas[1], "not two replicas")
+        one = Predictor(pred.model, cfg.model, device="cuda")
+        served = serve_phase("nViT-B/16 on two replicas (Predictor(data_parallel=True, devices=[cuda:0, "
+                             "cuda:0]))", "nvit", cfg, pred, one, replicas=2, versus="one replica")
+        del pred, one
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"data-parallel phase: {time.perf_counter() - t_phase:.1f} s")
+    forwards = 3 * 2  # three requests, two replica-forwards each
+    return {"data-parallel-step": res[0]["launches"],
+            "data-parallel-forward": {k: v // forwards for k, v in served.items()}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device — this smoke test runs only on the card", file=sys.stderr)
@@ -2966,6 +3232,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     # the serving modes: one forward of each (int8, the AOT artifacts), the debug CLI's
     by_path.update(serving_modes_phase(smi))
+    gc.collect()
+    torch.cuda.empty_cache()
+    # data parallelism: one step of a rank of two, one forward of a replica of two
+    by_path.update(data_parallel_phase(smi))
 
     # launches: the flagship paths' (above; the Kohonen flagship's last);
     # path_launches: each full path's own; profile_launches: one step of
@@ -2987,4 +3257,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-worker"]:  # one rank of phase 15, started by the phase
+        sys.exit(dp_worker(Path(sys.argv[2])))
     sys.exit(main())

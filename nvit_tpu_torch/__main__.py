@@ -13,8 +13,21 @@ default runs as it is, and so do the project's three profiles::
     NVIT_DATA__DATA_DIR=./data python -m nvit_tpu_torch
     env $(cat profiles/nvit1_k1.env) NVIT_DATA__DATA_DIR=./data python -m nvit_tpu_torch
 
+Several processes (≙ nvit_tpu/__main__.py; the port runs one process per
+card, as the reference's ``torchrun`` did): with several cards visible and
+``system.use_ddp`` on, the command re-executes itself under ``python -m
+torch.distributed.run --standalone --nproc_per_node=<cards>``, so it trains
+on every local card; under ``NVIT_MULTIHOST=1`` with the JAX coordinator
+variables (``JAX_COORDINATOR_ADDRESS=host:port``, ``JAX_NUM_PROCESSES``,
+``JAX_PROCESS_ID``) the same command on every host joins one run of
+``--nnodes`` hosts.  It also runs under a launcher as it is::
+
+    torchrun --nproc_per_node=2 -m nvit_tpu_torch
+    NVIT_SYSTEM__DEVICE=cpu torchrun --nproc_per_node=2 -m nvit_tpu_torch   # gloo
+
 Settings the port has not ported raise ``NotImplementedError`` naming their
-ROADMAP.md item, ``NVIT_MULTIHOST=1`` among them.
+ROADMAP.md item (``system.model_parallel > 1`` and ``system.fsdp`` across
+ranks: slice 16).
 """
 
 from nvit_tpu_torch.train.trainer import main

@@ -17,6 +17,9 @@ scalar ``metrics``, the Trainer's protocol state (``trainer``), the whole
 * ``restore_for_resume`` rebuilds the ``Config`` from the checkpoint's own
   meta, then the model and optimizer state from it.  Orbax checkpoints
   (``ckpt/orbax_backend.py``) are on ROADMAP.md's do-not-port list and raise.
+* Data parallelism changes nothing here: every rank holds the whole state,
+  rank 0 alone saves (the Trainer), and each rank restores onto its own
+  ``device``; a checkpoint of a run on N ranks is the same file.
 """
 
 from __future__ import annotations

@@ -20,10 +20,13 @@ def preprocess(
     train: bool = False,
     dataset: str = "cifar10",
     auto_augment: bool = True,
+    row0: int = 0,
+    batch: int | None = None,
 ) -> torch.Tensor:
     """AutoAugment (train only, on uint8, with the dataset's policy, drawn
-    from ``generator``) → normalize.  Without a generator nothing is
-    augmented, as the JAX package's ``preprocess`` without a key."""
+    from ``generator`` for rows ``row0 …`` of a global batch of ``batch``)
+    → normalize.  Without a generator nothing is augmented, as the JAX
+    package's ``preprocess`` without a key."""
     if train and auto_augment and generator is not None:
-        images_u8 = auto_augment_batch(images_u8, generator, dataset=dataset)
+        images_u8 = auto_augment_batch(images_u8, generator, dataset=dataset, row0=row0, batch=batch)
     return normalize(images_u8)

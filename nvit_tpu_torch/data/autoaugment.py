@@ -387,10 +387,17 @@ def apply_plan(images_u8: torch.Tensor, op: np.ndarray, mag: np.ndarray) -> torc
 
 
 def auto_augment_batch(images_u8: torch.Tensor, generator: torch.Generator, *,
-                       dataset: str = "cifar10") -> torch.Tensor:
+                       dataset: str = "cifar10", row0: int = 0, batch: int | None = None) -> torch.Tensor:
     """AutoAugment a uint8 [B, C, H, W] batch with the dataset's policy,
-    drawing from ``generator`` (≙ autoaugment.py:auto_augment_batch)."""
+    drawing from ``generator`` (≙ autoaugment.py:auto_augment_batch).
+    ``images_u8`` are rows ``row0 … row0 + B − 1`` of a global batch of
+    ``batch`` images (default B): the draw is the global batch's, so an
+    image's augmentation does not depend on how many ranks share it (≙ JAX
+    augmenting the assembled global batch)."""
     policy = _POLICIES[dataset.lower()]
-    dec = draw(images_u8.shape[0], generator, num_policies=len(policy))
+    n = images_u8.shape[0]
+    dec = draw(n if batch is None else batch, generator, num_policies=len(policy))
+    rows = slice(row0, row0 + n)
+    dec = Decisions(dec.policy[rows], dec.coins[rows], dec.signs[rows])
     op, mag = plan(dec, dataset, images_u8.shape[-1])
     return apply_plan(images_u8, op, mag)

@@ -1,4 +1,5 @@
-"""Inference API (≙ nvit_tpu/infer.py): batched prediction on one device.
+"""Inference API (≙ nvit_tpu/infer.py): batched prediction on one device,
+or data-parallel over several.
 
 Usage::
 
@@ -14,12 +15,16 @@ from ``ckpt.convert.state_dict_from_jax``.  None of them builds an
 optimizer.  The forward runs the port's kernels where the model's config
 selects them.  ``quantize="int8"`` serves w8a8 (``ops/quant.py``): int8
 linears on ``torch._int_mm``, attention still on K1/K5 or K7.
+``data_parallel=True`` keeps one replica per card (or per entry of
+``devices=[...]``) and splits every batch over them.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 from pathlib import Path
-from typing import Mapping
+from typing import Mapping, Sequence
 
 import numpy as np
 import torch
@@ -50,20 +55,41 @@ class Predictor:
         data_parallel: bool = False,
         model_parallel: int = 1,
         quantize: str | None = None,
+        devices: Sequence[torch.device | str] | None = None,
     ):
         """``state_dict_or_module``: a ``ViT`` (moved to ``device``, the card
         unless the caller asks for the CPU) or its ``state_dict`` (loaded
         strictly; an int8 one into the int8 model).  ``compute_dtype=None``
         runs fp32.  ``quantize="int8"`` quantizes every linear once, after
-        loading (w8a8, ``ops/quant.py``); an int8 export stays as stored."""
-        if data_parallel or model_parallel != 1:
+        loading (w8a8, ``ops/quant.py``); an int8 export stays as stored.
+
+        ``data_parallel=True`` (≙ infer.py:40-157, the ``data`` mesh axis)
+        keeps one replica on each of ``devices`` — default every visible
+        card, or ``device`` alone on the CPU; a device may be listed twice —
+        pads each batch to a multiple of their count, launches every chunk
+        on its replica before it gathers any, so the cards overlap, and
+        returns the one-replica probabilities.  It composes with int8."""
+        if model_parallel < 1:
+            raise ValueError(f"model_parallel must be >= 1, got {model_parallel}")
+        if model_parallel > 1:
             raise NotImplementedError(
-                "data_parallel / model_parallel are not ported yet (ROADMAP.md, multi-GPU)"
-            )
+                f"model_parallel={model_parallel} (tensor parallelism) is not ported yet: slice 16 "
+                "(ROADMAP.md, 'multi-GPU', item 10b)")
         if quantize not in (None, "int8"):
             raise ValueError(f"unknown quantize mode {quantize!r} (supported: 'int8')")
+        if devices is not None and not data_parallel:
+            raise ValueError("devices= lists the data-parallel replicas: pass data_parallel=True")
+        device = torch.device(device)
+        if not data_parallel:
+            devices = [device]
+        elif devices is None:
+            devices = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+                       if device.type == "cuda" else [device])
+        devices = [torch.device(d) for d in devices]
+        if not devices:
+            raise ValueError("data_parallel=True with no device")
         self.cfg = model_cfg
-        self.device = torch.device(device)
+        self.device = devices[0]
         self.compute_dtype = compute_dtype
         if isinstance(state_dict_or_module, nn.Module):
             model = state_dict_or_module.to(self.device)
@@ -75,6 +101,9 @@ class Predictor:
         if quantize == "int8":
             quantize_vit(model)
         self.model = model.eval()
+        self.devices = devices
+        self.replicas = [self.model, *(copy.deepcopy(self.model).to(d) for d in devices[1:])]
+        self.batch_multiple = len(self.replicas)  # each batch pads to a multiple of this
 
     @classmethod
     def from_config(cls, cfg: Config, seed: int = 0, *, device: torch.device | str = "cuda",
@@ -103,11 +132,20 @@ class Predictor:
     def predict_probs(self, images_u8) -> np.ndarray:
         """[B, C, H, W] uint8 → softmax probabilities [B, num_classes] (fp32)."""
         # np.array copies: request bodies arrive as read-only buffers
-        x = torch.from_numpy(np.array(images_u8, dtype=np.uint8)).to(self.device)
+        x = np.array(images_u8, dtype=np.uint8)
+        b, m = x.shape[0], self.batch_multiple
+        if b % m:  # ≙ infer.py:147-150: pad to a replica multiple
+            x = np.concatenate([x, np.zeros((m - b % m, *x.shape[1:]), np.uint8)])
+        outs = []
         with torch.inference_mode():
-            logits = self.model(normalize(x), compute_dtype=self.compute_dtype)
-            probs = torch.softmax(logits.float(), dim=-1)
-        return probs.cpu().numpy()
+            for model, dev, chunk in zip(self.replicas, self.devices, np.split(x, m)):
+                # launched on every replica before any is gathered
+                with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
+                    logits = model(normalize(torch.from_numpy(chunk).to(dev)),
+                                   compute_dtype=self.compute_dtype)
+                    outs.append(torch.softmax(logits.float(), dim=-1))
+            probs = torch.cat([o.cpu() for o in outs])
+        return probs[:b].numpy()
 
     def predict(self, images_u8, top_k: int = 1) -> tuple[np.ndarray, np.ndarray]:
         """→ (top-k class indices [B, k], probabilities [B, k])."""

@@ -27,9 +27,10 @@ fails, the old model keeps serving.  ``--int8`` serves w8a8
 (``ops/quant.py``); ``--aot`` serves an artifact of ``ckpt/aot.py`` (no model
 built from code; a pinned batch pads every request up to it and caps it),
 and excludes ``--int8`` (baked in at export), ``--export``,
-``--data-parallel`` and ``--model-parallel``.  ``--data-parallel`` and
-``--model-parallel`` > 1 are refused, naming their ROADMAP.md item.  In a
-program::
+``--data-parallel`` and ``--model-parallel``.  ``--data-parallel`` serves
+one replica per visible card (``Predictor(data_parallel=True)``; each
+batch split over them); ``--model-parallel`` > 1 is refused, naming slice
+16.  In a program::
 
     service = InferenceService(Predictor.from_config(cfg, device="cuda"), max_batch=32)
     service.warmup()
@@ -360,7 +361,10 @@ class InferenceService:
             images, _ = _pad_batch(images, self.max_batch)
         with self._lock:
             probs = np.asarray(self.predictor.predict_probs(images))
-        self.stats.record_program(b, images.shape[0])
+        # the Predictor pads again to a replica multiple under --data-parallel
+        # (infer.py::predict_probs): those rows are device work too
+        m = getattr(self.predictor, "batch_multiple", 1)
+        self.stats.record_program(b, -(-images.shape[0] // m) * m)
         return probs[:b]
 
     def predict(self, images: np.ndarray, top_k: int = 1) -> dict:
@@ -472,23 +476,23 @@ def main(argv=None) -> None:
     ap.add_argument("--aot", action="store_true",
                     help="load an AOT artifact (ckpt.aot): no model built from code; "
                          "--int8 is baked in at export time")
-    ap.add_argument("--data-parallel", action="store_true", help="not ported")
-    ap.add_argument("--model-parallel", type=int, default=1, help="not ported beyond 1")
+    ap.add_argument("--data-parallel", action="store_true",
+                    help="one replica per visible card, each batch split over them")
+    ap.add_argument("--model-parallel", type=int, default=1, help="not ported beyond 1 (slice 16)")
     args = ap.parse_args(argv)
     if args.aot and (args.int8 or args.data_parallel or args.export or args.model_parallel > 1):
         # export-time properties of the artifact: accepting them here would serve something else
         ap.error("--aot is exclusive: bake --int8 into the artifact via "
                  "ckpt.aot, and --export/--data-parallel/--model-parallel do not apply")
-    for refused, flag in ((args.data_parallel, "--data-parallel"),
-                          (args.model_parallel != 1, "--model-parallel > 1")):
-        if refused:
-            ap.error(f"{flag} is not ported yet (ROADMAP.md, 'multi-GPU')")
+    if args.model_parallel != 1:
+        ap.error("--model-parallel > 1 (tensor parallelism) is not ported yet: slice 16 "
+                 "(ROADMAP.md, 'multi-GPU')")
 
     def build():
         if args.aot:
             return load_aot(args.checkpoint, args.name, device=args.device)
         load = Predictor.from_export if args.export else Predictor.from_checkpoint
-        return load(args.checkpoint, args.name, device=args.device,
+        return load(args.checkpoint, args.name, device=args.device, data_parallel=args.data_parallel,
                     quantize="int8" if args.int8 else None)
 
     service = InferenceService(build(), max_batch=args.max_batch,

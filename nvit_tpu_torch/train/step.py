@@ -8,7 +8,17 @@ Gradient accumulation runs over DISTINCT micro-batches: ``.grad`` sums them,
 and the sum is divided by the count (≙ the JAX ``lax.scan``, :99-134); the
 Hebbian deltas, each computed against the pre-step nodes, are summed and not
 divided.  No GradScaler: bf16 needs no loss scaling.  PyTorch runs eagerly,
-so there is no jit and no mesh.
+so there is no jit.
+
+Across processes (``group``, ``parallel/mesh.py``; ≙ the step under a mesh,
+where XLA's partitioner reduces over the ``data`` axis) each rank runs the
+step on its rows of the global batch, and after the micro-batch loop, in
+this order: the gradients and the loss terms are averaged over ranks (one
+all-reduce; every loss term is a per-sample mean), the Hebbian deltas are
+SUMMED over ranks (a delta is a batch sum: under SPMD it is the global
+batch's).  Clip, AdamW, renorm, the norms and the histograms then read the
+same reduced gradients on every rank, so the parameters stay bit-equal
+without another broadcast.
 
 ``log_histograms`` gives the step variant that adds every gradient's
 ``gradhist/<JAX path>`` counts (``obs/grad_hist.py``, ≙ :162-165), which
@@ -31,6 +41,7 @@ from nvit_tpu_torch.models.schedules import cosine_lr
 from nvit_tpu_torch.models.vit import total_loss
 from nvit_tpu_torch.obs.grad_hist import tree_grad_histograms
 from nvit_tpu_torch.obs.profiling import check_finite
+from nvit_tpu_torch.parallel.mesh import DataGroup, all_reduce_mean_, all_reduce_sum_
 from nvit_tpu_torch.train.optim import fused_adamw_renorm_update, global_norm
 from nvit_tpu_torch.train.state import TrainState, compute_dtype_of
 
@@ -66,11 +77,13 @@ HEBBIAN_DELTAS = {"local_delta": "local_kohonen.nodes", "global_delta": "global_
 
 
 def make_train_step(
-    cfg: Config, log_norms: bool | None = None, log_histograms: bool = False
+    cfg: Config, log_norms: bool | None = None, log_histograms: bool = False,
+    group: DataGroup | None = None,
 ) -> Callable[[TrainState, torch.Tensor, torch.Tensor], tuple[TrainState, Metrics]]:
     """(state, images, labels) → (state, metrics); the state is updated in place.
 
-    ``images``: [B, C, H, W] fp32 (normalized); ``labels``: [B] int.  With
+    ``images``: [B, C, H, W] fp32 (normalized); ``labels``: [B] int — with
+    ``group``, this rank's rows of the global batch.  With
     gradient_accumulation_steps = k, B must divide by k.  ``log_norms``
     overrides ``cfg.system.log_gpu_stats`` for the grad/param norm metrics;
     ``log_histograms`` adds the gradients' ``gradhist/*`` int32[64] counts.
@@ -103,6 +116,9 @@ def make_train_step(
         if accum > 1:
             grads = {n: g / accum for n, g in grads.items()}
             terms = {k: v / accum for k, v in terms.items()}
+        if group is not None and group.world > 1:
+            all_reduce_mean_(group, [*grads.values(), *terms.values()])
+            all_reduce_sum_(group, deltas.values())
 
         if cfg.system.debug_nans:
             check_finite([("the loss", terms["total_loss"]), *((f"the gradient of {n}", g)
@@ -127,8 +143,8 @@ def make_train_step(
                     prefix = f"transformer.h.{i}."
                     metrics[f"blocks.{i}_grad_norm"] = global_norm(
                         g for n, g in grads.items() if n.startswith(prefix))
-                for group, prefix in GRAD_NORM_GROUPS.items():
-                    metrics[f"{group}_grad_norm"] = global_norm(
+                for part, prefix in GRAD_NORM_GROUPS.items():
+                    metrics[f"{part}_grad_norm"] = global_norm(
                         g for n, g in grads.items() if n.startswith(prefix))
         for p in params.values():
             p.grad = None

@@ -52,10 +52,32 @@ that feeds an eval (never the one that reaches ``max_iters``) and logs its
 gradient or updated parameter.  ``optimizer.moments_dtype="bfloat16"``
 keeps the moments in bf16 with stochastic rounding (``train/optim.py``).
 
+Data parallelism (≙ trainer.py:90-178, :335-354, :415-435, :458-465,
+:590-605, :850-1000): one process per card, as the reference's
+``torchrun`` ran it.  Under a launcher's environment (``WORLD_SIZE`` > 1)
+the Trainer forms the group itself (``parallel/mesh.py``: NCCL on cards,
+gloo on the CPU), or joins one the caller formed (``group=``), and
+destroys a group it formed in ``cleanup()``.  Rank 0's parameters and
+moments are broadcast once; each rank loads its shard of every global
+batch (``batch_size / world`` rows, ``drop_last``), augments its rows of
+the global batch's draw, and the step averages the gradients and SUMS the
+Hebbian deltas over ranks.  Rank 0 alone writes: the metrics sinks, wandb
+and its artifacts, the checkpoints, the ``finished`` sentinel, ``stat`` and
+``training.log``, and the CIFAR download (the others wait for it).  Every
+rank restores the same checkpoint onto its own device.  Validation and
+``estimate_loss`` average their metrics over ranks, so early stopping
+agrees everywhere.  The time limit is rank 0's verdict, broadcast every
+``log_interval`` iterations, and a signal is deferred to the step boundary,
+where the ranks agree to stop together (one host all-reduce a step), so no
+rank waits in a collective another has left.  Several cards visible to one
+process with ``use_ddp`` on and no group is a ``ValueError``: the Trainer
+never trains on one card of several quietly.
+
 Refused at construction with ``NotImplementedError``, never skipped
-silently: more than one device (ROADMAP.md, 'multi-GPU'), and orbax
-checkpoints (on ROADMAP.md's do-not-port list).  One process loads the
-data, so ``data.download`` needs no master gating.  ``jit``, ``compile``,
+silently: ``system.model_parallel > 1`` and ``system.fsdp`` across ranks
+(slice 16, ROADMAP.md 'multi-GPU'; ``fsdp`` on one rank warns, as the JAX
+trainer does), and orbax checkpoints (on ROADMAP.md's do-not-port list).
+``jit``, ``compile``,
 ``compilation_cache_dir``, ``clear_cache`` and ``backend`` are TPU/XLA
 settings with no PyTorch counterpart and are ignored, and so is
 ``system.use_tqdm``: the JAX trainer's progress bar changes no result.
@@ -72,16 +94,17 @@ import signal
 import sys
 import time
 from pathlib import Path
-from typing import Any
+from typing import Any, Mapping
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from nvit_tpu_torch.ckpt.checkpoint import restore_for_resume, save_checkpoint_async
 from nvit_tpu_torch.configs import Config, load_config
 from nvit_tpu_torch.data.augment import preprocess
 from nvit_tpu_torch.data.autoaugment import step_generator
-from nvit_tpu_torch.data.datasets import load_dataset
+from nvit_tpu_torch.data.datasets import load_dataset, wait_for_cifar
 from nvit_tpu_torch.data.pipeline import device_prefetch, make_epoch_iterator
 from nvit_tpu_torch.models.blocks import SQK_INIT_VALUE
 from nvit_tpu_torch.models.schedules import cosine_lr
@@ -94,6 +117,17 @@ from nvit_tpu_torch.obs.metrics import (
     write_stat_line,
 )
 from nvit_tpu_torch.obs.profiling import start_trace, stop_trace
+from nvit_tpu_torch.parallel.mesh import (
+    DataGroup,
+    any_flag,
+    broadcast_,
+    broadcast_flag,
+    destroy,
+    init_data_parallel,
+    join_default_group,
+    launcher_world,
+    mean_metrics,
+)
 from nvit_tpu_torch.train.state import create_train_state
 from nvit_tpu_torch.train.step import make_eval_step, make_train_step
 
@@ -113,12 +147,11 @@ def device_peak_flops(device: torch.device) -> float | None:
     return next((peak for key, peak in PEAK_BF16_FLOPS.items() if key in name), None)
 
 
-def check_ported(cfg: Config, device: torch.device) -> None:
+def check_ported(cfg: Config, world: int = 1) -> None:
     """Raise ``NotImplementedError`` for the settings the port refuses:
-    several devices (not ported yet) and orbax checkpoints (not to be ported)."""
+    tensor parallelism and FSDP across ``world`` ranks (slice 16) and orbax
+    checkpoints (not to be ported)."""
     t, s, d = cfg.training, cfg.system, cfg.data
-    multi_gpu = s.model_parallel > 1 or (
-        s.use_ddp and device.type == "cuda" and torch.cuda.device_count() > 1)
     if t.init_from not in ("scratch", "resume", "wandb"):
         raise ValueError(f"Invalid init_from value: {t.init_from}")
     if d.checkpoint_backend == "orbax":
@@ -128,35 +161,87 @@ def check_ported(cfg: Config, device: torch.device) -> None:
     if d.checkpoint_backend != "npz":
         raise ValueError(f"checkpoint_backend must be 'npz' or 'orbax', got {d.checkpoint_backend!r}")
     cfg.model.validate()  # before anything is made on the device
-    if multi_gpu:
+    if s.model_parallel > 1:
         raise NotImplementedError(
-            "more than one device (system.use_ddp with several cards, model_parallel) is not "
-            "ported yet (ROADMAP.md, 'multi-GPU')")
+            f"system.model_parallel={s.model_parallel} (tensor parallelism) is not ported yet: "
+            "slice 16 (ROADMAP.md, 'multi-GPU', item 10b)")
+    if s.fsdp and world > 1:
+        raise NotImplementedError(
+            f"system.fsdp across {world} ranks (ZeRO-3) is not ported yet: slice 16 (ROADMAP.md, "
+            "'multi-GPU', item 10b)")
+
+
+def data_group(cfg: Config, device: torch.device, group: DataGroup | None) -> tuple[DataGroup | None, bool]:
+    """(the run's data-parallel group or None, whether the Trainer formed
+    it): ``group``, else the default group a caller formed, else one formed
+    from the launcher's environment.  Refuses a setting that would train
+    on fewer cards than asked for."""
+    if group is not None:
+        return group, False
+    if dist.is_initialized():
+        return join_default_group(device), False
+    world = launcher_world()
+    if world > 1 and not cfg.system.use_ddp:
+        raise ValueError(f"system.use_ddp is false under a launcher of {world} processes: each "
+                         "would train alone on its shard; set system.use_ddp=true")
+    if "WORLD_SIZE" in os.environ and cfg.system.use_ddp:  # under a launcher, of one process too
+        return init_data_parallel(device.type), True
+    cards = torch.cuda.device_count() if device.type == "cuda" else 0
+    if cfg.system.use_ddp and cards > 1:
+        raise ValueError(
+            f"{cards} cards are visible and system.use_ddp is on, but this process has no group: one "
+            f"process drives one card; launch `torchrun --nproc_per_node={cards} -m nvit_tpu_torch` "
+            "(`python -m nvit_tpu_torch` does), or set system.use_ddp=false or CUDA_VISIBLE_DEVICES "
+            "to train on one card")
+    return None, False
 
 
 class Trainer:
-    def __init__(self, config: Config, *, device: torch.device | str = "cuda"):
-        """Train ``config`` on ``device``: the card unless the caller asks for the CPU."""
+    def __init__(self, config: Config, *, device: torch.device | str = "cuda",
+                 group: DataGroup | None = None):
+        """Train ``config`` on ``device``: the card unless the caller asks
+        for the CPU; with a data-parallel group (``group``, the default
+        group, or the launcher's environment) on the rank's device."""
         self.cfg = cfg = config
-        self.device = torch.device(device)
-        check_ported(cfg, self.device)
+        device = torch.device(device)
+        world = (group.world if group is not None else
+                 dist.get_world_size() if dist.is_initialized() else launcher_world())
+        check_ported(cfg, world)
+        self.group, self._owns_group = data_group(cfg, device, group)
+        self.world = 1 if self.group is None else self.group.world
+        self.rank = 0 if self.group is None else self.group.rank
+        self.is_master = self.rank == 0
+        self.device = device if self.group is None else self.group.device
         if self.device.type == "cuda":
             # cuBLAS bf16 GEMMs (the dW/dx products) reduce split-K partials in
             # fp32, as the JAX step's preferred_element_type=f32 products do
             torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
         accum = max(1, cfg.training.gradient_accumulation_steps)
-        if cfg.training.batch_size % accum:
-            raise ValueError(f"batch_size={cfg.training.batch_size} not divisible by "
-                             f"gradient_accumulation_steps={accum}")
+        batch = cfg.training.batch_size
+        if batch % accum:
+            raise ValueError(f"batch_size={batch} not divisible by gradient_accumulation_steps={accum}")
+        if batch % self.world:  # ≙ trainer.py:153-178
+            raise ValueError(f"batch_size={batch} not divisible by the {self.world} ranks")
+        if (batch // accum) % self.world:
+            raise ValueError(f"per-micro-batch size {batch // accum} (batch_size/grad_accum) not "
+                             f"divisible by the {self.world} ranks")
         self.out_dir = Path(cfg.data.out_dir)
         self.out_dir.mkdir(parents=True, exist_ok=True)
         self.logger = setup_logging(self.out_dir, level=cfg.system.log_level,
-                                    to_file=cfg.system.log_to_file)
+                                    to_file=cfg.system.log_to_file and self.is_master)
+        if self.group is not None:
+            self.logger.info("data parallel: rank %d of %d on %s (pid %d)", self.rank, self.world,
+                             self.device, os.getpid())
+        if cfg.system.fsdp and self.world == 1:
+            # ≙ trainer.py:105-113: not an error, but no memory is saved
+            self.logger.warning("system.fsdp requested on one rank: training with fully replicated "
+                                "params/moments")
         self.iter_num = 0
         self.finished = False
         self.best_val_loss: float | None = None
         self.early_stopping_counter = 0
         self._eval_count = 0
+        self._time_up = False  # rank 0's verdict on the time limit (see _time_limit_reached)
         self._sqk_drift_warned = False  # the drift warning is logged once per Trainer
         self._data_wait = 0.0  # seconds the loop waited for batches since the last log
         self.last_metrics: dict[str, float] = {}
@@ -170,12 +255,17 @@ class Trainer:
         else:
             self._resume(cfg.data.checkpoint_dir, cfg.data.checkpoint_file.removesuffix(".npz"))
             cfg = self.cfg
-        self._train_step = make_train_step(cfg, log_norms=False)
-        self._train_step_norms = (make_train_step(cfg, log_norms=True)
+        if self.world > 1:  # ≙ shard_params: DDP's initial parameter broadcast
+            st = self.state
+            broadcast_(self.group, [*st.model.state_dict().values(), *st.opt_state.mu.values(),
+                                    *st.opt_state.nu.values()])
+        grp = self.group
+        self._train_step = make_train_step(cfg, log_norms=False, group=grp)
+        self._train_step_norms = (make_train_step(cfg, log_norms=True, group=grp)
                                   if cfg.system.log_gpu_stats else self._train_step)
         # the eval-cadence variant: + per-tensor gradient histograms
         self._train_step_hist = (make_train_step(cfg, log_norms=cfg.system.log_gpu_stats,
-                                                 log_histograms=True)
+                                                 log_histograms=True, group=grp)
                                  if cfg.system.log_grad_histograms else None)
         self._pending_grad_hists: dict[str, torch.Tensor] | None = None
         self._trace = None  # the profiler of the profile_steps window while it runs
@@ -202,7 +292,8 @@ class Trainer:
                 "set training.full_eval_interval=N to run the full val pass "
                 "every Nth eval", cfg.system.quick_validation_size,
             )
-        self._flops_per_iter = estimate_flops_per_iter(cfg.model, n) * cfg.training.batch_size
+        # MFU is a card's: this rank's rows of the global batch
+        self._flops_per_iter = estimate_flops_per_iter(cfg.model, n) * (batch // self.world)
 
     def _resume(self, ckpt_dir: str, name: str) -> None:
         """init_from="resume" (≙ trainer.py:189-224): the MODEL config comes
@@ -238,11 +329,13 @@ class Trainer:
 
     # ------------------------------------------------------------------ data
     def _load_data(self) -> None:
-        """Both splits of ``data.dataset`` (≙ trainer.py:_load_data; one
-        process, so ``data.download`` is taken as it is)."""
+        """Both splits of ``data.dataset`` (≙ trainer.py:_load_data): rank 0
+        downloads under ``data.download``, the others wait for its extract."""
         cfg = self.cfg
-        kw = dict(image_size=cfg.model.image_size, num_classes=cfg.model.num_classes,
-                  download=cfg.data.download)
+        download = cfg.data.download and self.is_master
+        if cfg.data.download and cfg.data.dataset in ("cifar10", "cifar100") and not self.is_master:
+            wait_for_cifar(cfg.data.data_dir, cfg.data.dataset)
+        kw = dict(image_size=cfg.model.image_size, num_classes=cfg.model.num_classes, download=download)
         t0 = time.perf_counter()
         self.trainset = load_dataset(cfg.data.dataset, cfg.data.data_dir, train=True, **kw)
         self.valset = load_dataset(cfg.data.dataset, cfg.data.data_dir, train=False, **kw)
@@ -253,11 +346,13 @@ class Trainer:
 
     def _epoch_iter(self, ds, *, epoch: int, shuffle: bool, drop_last: bool = True, start_batch: int = 0):
         """The epoch's batches on the device, ``data.prefetch`` in flight
-        (≙ trainer.py:_epoch_iter on one process)."""
+        (≙ trainer.py:_epoch_iter): this rank's strided shard of each global
+        batch; ragged batches would desync the ranks, so several drop them."""
         d = self.cfg.data
-        it = make_epoch_iterator(ds, batch_size=self.cfg.training.batch_size, epoch=epoch,
-                                 seed=self.cfg.training.seed, shuffle=shuffle, drop_last=drop_last,
-                                 num_workers=d.num_workers, start_batch=start_batch)
+        it = make_epoch_iterator(ds, batch_size=self.cfg.training.batch_size // self.world, epoch=epoch,
+                                 seed=self.cfg.training.seed, shuffle=shuffle,
+                                 drop_last=drop_last or self.world > 1, num_workers=d.num_workers,
+                                 shard_index=self.rank, shard_count=self.world, start_batch=start_batch)
         return device_prefetch(it, self.device, size=d.prefetch)
 
     def _timed(self, batches):
@@ -276,11 +371,15 @@ class Trainer:
     def _preprocess(self, imgs_u8: torch.Tensor, *, train: bool, step: int | None = None) -> torch.Tensor:
         """AutoAugment (train) and normalize; a train batch's draw is keyed
         by the run key and ``step`` (default ``iter_num``), as the JAX
-        trainer keys it by ``fold_in(state.rng, step)``."""
+        trainer keys it by ``fold_in(state.rng, step)``, and drawn for the
+        global batch, of which this rank's images are rows
+        ``rank·b … (rank+1)·b − 1``."""
         aug = self.cfg.data.augmentation
         gen = step_generator(self.state.rng, self.iter_num if step is None else step) if train else None
+        b = imgs_u8.shape[0]
         return preprocess(imgs_u8, gen, train=train, dataset=self.cfg.data.dataset,
-                          auto_augment=aug.enabled and aug.auto_augment)
+                          auto_augment=aug.enabled and aug.auto_augment, row0=self.rank * b,
+                          batch=self.world * b)
 
     def _sqk_drift_metrics(self) -> dict[str, float]:
         """Largest effective sqk and the bounded-softmax shift it implies
@@ -304,6 +403,26 @@ class Trainer:
             )
         return {"scales/sqk_eff_max": eff_max, "scales/attn_bound": bound}
 
+    def _time_limit_reached(self, tlaunch: float) -> bool:
+        """The launch's time limit (≙ trainer.py:415-435): one rank checks
+        its own clock every iteration; several take rank 0's verdict,
+        broadcast at a lockstep point (every ``log_interval``-th iteration),
+        so no rank leaves the loop a step before another."""
+        if self._time_up:
+            return True
+        up = time.time() - tlaunch >= self.cfg.training.time_limit_seconds
+        if self.world == 1:
+            self._time_up = up
+        elif self.iter_num % self.cfg.training.log_interval == 0:
+            self._time_up = broadcast_flag(self.group, up)
+        return self._time_up
+
+    def _signalled(self) -> bool:
+        """At the step boundary: has a deferred signal arrived — on any rank,
+        with several, which agree on it here, every step (≙ :590-605)."""
+        got = self._deferred_signal is not None
+        return got if self.world == 1 else any_flag(self.group, got)
+
     # ----------------------------------------------------------------- train
     def train(self) -> None:
         """Main training loop (≙ trainer.py:Trainer.train)."""
@@ -311,19 +430,21 @@ class Trainer:
         tc = cfg.training
         try:
             tlaunch = time.time()
+            self._time_up = False
             self._cleaned = False  # re-arm cleanup for this launch
             self._install_signal_handlers()
             self._load_data()
-            if len(self.trainset) < tc.batch_size:
+            if len(self.trainset) // self.world < tc.batch_size // self.world:
                 raise ValueError(f"training dataset ({len(self.trainset)} examples) is smaller "
                                  f"than one batch ({tc.batch_size})")
-            self.metrics_writer = MetricsWriter(self.out_dir, wandb_mode=cfg.wandb.mode,
-                                                run_name=cfg.wandb.run_name, project=cfg.wandb.project,
-                                                config=cfg.to_dict())
+            if self.is_master:
+                self.metrics_writer = MetricsWriter(self.out_dir, wandb_mode=cfg.wandb.mode,
+                                                    run_name=cfg.wandb.run_name, project=cfg.wandb.project,
+                                                    config=cfg.to_dict())
             if tc.init_from == "resume" and not self._sentinel_allows_resume():
                 self.logger.info("finished sentinel present; not relaunching")
                 return
-            if self.iter_num == 0 and tc.init_from == "scratch":
+            if self.iter_num == 0 and tc.init_from == "scratch" and self.is_master:
                 write_stat_line(self.out_dir, iter_num=0, lr=0.0, train_loss=0.0, val_loss=0.0,
                                 model=self.state.model, cfg=cfg, append=False)
             timer = StepTimer(self._flops_per_iter, device_peak_flops(self.device))
@@ -332,7 +453,7 @@ class Trainer:
 
             def stop() -> bool:
                 return (local_iter >= tc.max_iters_per_launch or self.iter_num >= tc.max_iters
-                        or time.time() - tlaunch >= tc.time_limit_seconds or self.finished)
+                        or self._time_limit_reached(tlaunch) or self.finished)
 
             while not stop():
                 # a resumed launch skips the batches its epoch already trained on
@@ -344,10 +465,11 @@ class Trainer:
                         break
                     if self.iter_num % tc.eval_interval == 0:
                         ev = self.evaluate()
-                        write_stat_line(self.out_dir, iter_num=self.iter_num,
-                                        lr=float(cosine_lr(cfg.optimizer, self.iter_num)),
-                                        train_loss=ev["train/loss"], val_loss=ev["val/loss"],
-                                        model=self.state.model, cfg=cfg)
+                        if self.is_master:
+                            write_stat_line(self.out_dir, iter_num=self.iter_num,
+                                            lr=float(cosine_lr(cfg.optimizer, self.iter_num)),
+                                            train_loss=ev["train/loss"], val_loss=ev["val/loss"],
+                                            model=self.state.model, cfg=cfg)
                     # trace steps [1, 1 + profile_steps): step 0 warms up
                     if cfg.system.profile_steps > 0 and local_iter == 1:
                         self._trace = start_trace(self.out_dir, self.device)
@@ -375,7 +497,7 @@ class Trainer:
                     if self._trace is not None and local_iter == 1 + cfg.system.profile_steps:
                         float(step_metrics["total_loss"])  # the window's device work, all in the trace
                         self._stop_trace()
-                    if self._deferred_signal is not None:
+                    if self._signalled():
                         self.logger.info("Handling deferred signal %s at step boundary",
                                          self._deferred_signal)
                         self.cleanup()
@@ -404,7 +526,10 @@ class Trainer:
         sentinel = self.out_dir / "finished"
         if not sentinel.exists():
             return True
-        text = sentinel.read_text().strip()
+        try:
+            text = sentinel.read_text().strip()
+        except FileNotFoundError:  # rank 0 cleared it meanwhile: its verdict is "extend"
+            text = "max_iters:-1"
         done_at = None
         if text.startswith("max_iters:"):
             try:
@@ -415,10 +540,13 @@ class Trainer:
             return False
         self.logger.info("finished sentinel from a completed max_iters=%d run; extending to "
                          "max_iters=%d", done_at, self.cfg.training.max_iters)
-        sentinel.unlink(missing_ok=True)
+        if self.is_master:
+            sentinel.unlink(missing_ok=True)
         return True
 
     def _log_step(self, step_metrics: dict[str, torch.Tensor], timer: StepTimer) -> None:
+        if not self.is_master:  # the metrics are the same on every rank
+            return
         tc = self.cfg.training
         keys = list(step_metrics)
         # ONE device-to-host transfer for every step metric
@@ -444,7 +572,8 @@ class Trainer:
     # ------------------------------------------------------------------ eval
     def estimate_loss(self) -> dict[str, float]:
         """Mean weighted loss over ``eval_iters`` batches of both splits
-        (≙ trainer.py:estimate_loss); the train batches rotate with the step."""
+        (≙ trainer.py:estimate_loss), over ranks too; the train batches
+        rotate with the step."""
         out = {}
         for split, ds in (("train", self.trainset), ("val", self.valset)):
             train = split == "train"
@@ -459,11 +588,12 @@ class Trainer:
                 m = self._eval_step(self.state.model, images, labels)
                 losses.append(m["loss"])
             out[split] = float(np.mean(torch.stack(losses).cpu().numpy())) if losses else math.nan
-        return out
+        return out if self.world == 1 else mean_metrics(self.group, out)
 
     def validate(self, *, quick: bool = False) -> dict[str, float]:
-        """Validation pass with top-1/top-5 (≙ trainer.py:validate);
-        ``quick`` caps it at ``quick_validation_size`` examples."""
+        """Validation pass with top-1/top-5 (≙ trainer.py:validate), each
+        rank over its shard, the means over ranks; ``quick`` caps it at
+        ``quick_validation_size`` examples."""
         cfg = self.cfg
         max_batches = None
         if quick and cfg.system.quick_validation:
@@ -482,9 +612,10 @@ class Trainer:
             collected.append(torch.stack([m[k].float() for k, _ in keep]))
         if not collected:
             raise ValueError(f"validation produced zero batches: val set has {len(self.valset)} "
-                             f"examples for batch {cfg.training.batch_size}")
+                             f"examples for batch {cfg.training.batch_size} over {self.world} rank(s)")
         means = torch.stack(collected).cpu().double().mean(dim=0).tolist()
-        return {f"val/{name}": v for (_, name), v in zip(keep, means)}
+        metrics = {f"val/{name}": v for (_, name), v in zip(keep, means)}
+        return metrics if self.world == 1 else mean_metrics(self.group, metrics)
 
     def validate_only(self) -> dict[str, float]:
         """``eval_only``: the full validation pass on the resumed checkpoint
@@ -516,7 +647,8 @@ class Trainer:
             hists, self._pending_grad_hists = self._pending_grad_hists, None
             metrics.update(zip(hists, torch.stack(list(hists.values())).cpu().tolist()))
         self.last_metrics = dict(metrics)
-        self.metrics_writer.log(metrics, step=self.iter_num)
+        if self.metrics_writer is not None:
+            self.metrics_writer.log(metrics, step=self.iter_num)
         # strict improvement, read before _should_stop_early updates the best
         val_loss = metrics["val/loss"]
         improved = self.best_val_loss is None or val_loss < self.best_val_loss
@@ -562,7 +694,9 @@ class Trainer:
 
     def save(self, metrics: dict[str, Any] | None = None) -> None:
         """checkpoint_latest (and checkpoint_<iter> with save_numbered_checkpoints):
-        the host copy now, the file writes on a thread."""
+        the host copy now, the file writes on a thread; rank 0 only."""
+        if not self.is_master:
+            return
         self._join_pending_saves()
         t0 = time.time()
         metrics = metrics or self.last_metrics
@@ -572,7 +706,9 @@ class Trainer:
         self.logger.info("Checkpoint snapshot time: %.2f sec", time.time() - t0)
 
     def save_best(self, metrics: dict[str, Any]) -> None:
-        """checkpoint_best, from evaluate() on a strict improvement only."""
+        """checkpoint_best, from evaluate() on a strict improvement only; rank 0 only."""
+        if not self.is_master:
+            return
         self._join_pending_saves()
         self._save_one("checkpoint_best", metrics)
         self._maybe_log_artifact()
@@ -607,22 +743,25 @@ class Trainer:
     def mark_training_finished(self, reason: str = "early_stop") -> None:
         """The relaunch protocol's sentinel (≙ trainer.py:mark_training_finished):
         ``early_stop`` is final, ``max_iters:N`` lets a resume with a larger
-        ``max_iters`` extend the run."""
+        ``max_iters`` extend the run.  Every rank stops; rank 0 writes."""
         self.finished = True
-        (self.out_dir / "finished").write_text(reason)
+        if self.is_master:
+            (self.out_dir / "finished").write_text(reason)
 
     # --------------------------------------------------------------- cleanup
     def _install_signal_handlers(self) -> None:
         """SIGINT/SIGTERM → save checkpoint_latest, clean up, exit 0
-        (≙ trainer.py:929-974), until cleanup() restores the previous ones."""
+        (≙ trainer.py:929-974), until cleanup() restores the previous ones.
+        With several ranks every signal defers to the step boundary, where
+        the ranks stop together; a second one exits 1 at once."""
 
         def handler(signum, frame):
-            if self._in_step:
+            if self._in_step or self.world > 1:
                 if self._deferred_signal is not None:
                     # a second signal while the same step still runs: the
                     # step may hang, so exit now, without the torn state
                     self.logger.warning(
-                        "Second signal %s while a step is in flight — forcing exit without "
+                        "Second signal %s before the step boundary — forcing exit without "
                         "a final save (resume from the last periodic checkpoint)", signum)
                     self._skip_final_save = True
                     self.cleanup()
@@ -655,9 +794,10 @@ class Trainer:
             stop_trace(trace)
 
     def cleanup(self) -> None:
-        """The final checkpoint_latest, the pending writes, the sinks (≙
-        trainer.py:976-1013).  checkpoint_best is evaluate()'s alone.  Runs
-        once per launch (a signal reaches it twice) and never raises."""
+        """The final checkpoint_latest (rank 0), the pending writes, the
+        sinks, the group the Trainer formed (≙ trainer.py:976-1013).
+        checkpoint_best is evaluate()'s alone.  Runs once per launch (a
+        signal reaches it twice) and never raises."""
         self._restore_signal_handlers()
         if self._cleaned:
             return
@@ -670,21 +810,78 @@ class Trainer:
             if self.metrics_writer is not None:
                 self.metrics_writer.finish()
                 self.metrics_writer = None
+            self.release_group()
         except Exception as e:  # teardown must not mask the exit path
             self.logger.error("Error during cleanup: %s", e)
+
+    def release_group(self) -> None:
+        """Destroy the data-parallel group if the Trainer formed it."""
+        if self._owns_group:
+            self._owns_group = False
+            destroy(self.group)
+
+
+def launch_argv(env: Mapping[str, str], cfg: Config, cards: int) -> list[str] | None:
+    """The launcher command ``python -m nvit_tpu_torch`` re-executes itself
+    under (≙ nvit_tpu/__main__.py:14-35: JAX drives every local chip from
+    one process; the port runs one process per card), or None to train in
+    this process.  ``cards``: the cards visible here.
+
+    * ``NVIT_MULTIHOST=1`` with ``JAX_COORDINATOR_ADDRESS`` (host:port),
+      ``JAX_NUM_PROCESSES`` and ``JAX_PROCESS_ID``: ``torch.distributed.run``
+      over that many hosts, this one ``--node_rank``, the coordinator as
+      the master, one process per card here (one on the CPU); the same
+      command runs on every host;
+    * several cards and ``system.use_ddp``: ``--standalone`` with one
+      process per card.
+
+    Not under a launcher already (``WORLD_SIZE`` set)."""
+    if "WORLD_SIZE" in env:
+        return None
+    on_cards = cfg.system.device != "cpu"
+    per_host = max(1, cards) if on_cards else 1
+    run = [sys.executable, "-m", "torch.distributed.run"]
+    module = ["-m", "nvit_tpu_torch"]
+    if env.get("NVIT_MULTIHOST") == "1":
+        coord = env.get("JAX_COORDINATOR_ADDRESS")
+        if not coord:
+            raise ValueError("NVIT_MULTIHOST=1 needs JAX_COORDINATOR_ADDRESS (host:port), "
+                             "JAX_NUM_PROCESSES and JAX_PROCESS_ID: the TPU pod auto-detection "
+                             "of jax.distributed.initialize() has no counterpart here")
+        host, sep, port = coord.rpartition(":")
+        if not sep or not host or not port.isdigit():
+            raise ValueError(f"JAX_COORDINATOR_ADDRESS must be host:port, got {coord!r}")
+        try:
+            nodes, node_rank = int(env["JAX_NUM_PROCESSES"]), int(env["JAX_PROCESS_ID"])
+        except (KeyError, ValueError) as e:
+            raise ValueError("NVIT_MULTIHOST=1 needs integer JAX_NUM_PROCESSES and JAX_PROCESS_ID") from e
+        if not 0 <= node_rank < nodes:
+            raise ValueError(f"JAX_PROCESS_ID={node_rank} not in [0, JAX_NUM_PROCESSES={nodes})")
+        return [*run, f"--nnodes={nodes}", f"--node_rank={node_rank}", f"--master_addr={host}",
+                f"--master_port={port}", f"--nproc_per_node={per_host}", *module]
+    if on_cards and cfg.system.use_ddp and cards > 1:
+        return [*run, "--standalone", f"--nproc_per_node={cards}", *module]
+    return None
 
 
 def main() -> None:
     """``python -m nvit_tpu_torch``: load the config (``settings.yaml``, the
     environment) and train, or validate under ``eval_only`` — on the card
-    unless ``system.device`` is ``"cpu"``.  One process drives one card; the
-    JAX package's multi-host launch (``NVIT_MULTIHOST=1``) is not ported."""
-    if os.environ.get("NVIT_MULTIHOST") == "1":
-        raise NotImplementedError("NVIT_MULTIHOST=1: several processes or cards are not ported "
-                                  "yet (ROADMAP.md, 'multi-GPU')")
+    unless ``system.device`` is ``"cpu"``.  With several cards and
+    ``use_ddp``, or under ``NVIT_MULTIHOST=1``, it re-executes itself under
+    ``torch.distributed.run`` (``launch_argv``); under a launcher each
+    process trains its rank."""
     cfg = load_config()
+    argv = launch_argv(os.environ, cfg, torch.cuda.device_count() if cfg.system.device != "cpu" else 0)
+    if argv is not None:
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os.execv(argv[0], argv)  # torchrun forwards SIGTERM/SIGINT to its workers
     trainer = Trainer(cfg, device="cpu" if cfg.system.device == "cpu" else "cuda")
-    if trainer.cfg.training.eval_only:
-        trainer.validate_only()
-    else:
-        trainer.train()
+    try:
+        if trainer.cfg.training.eval_only:
+            trainer.validate_only()
+        else:
+            trainer.train()
+    finally:
+        trainer.release_group()

@@ -22,6 +22,7 @@ tests/torch_cli_cases.py.
 """
 
 import json
+import os
 
 import numpy as np
 import pytest
@@ -98,7 +99,9 @@ def test_train_cli_runs_resumes_and_evaluates(tiny_run, monkeypatch):
 def test_train_cli_refuses_the_packaged_defaults_and_multihost(tmp_path, monkeypatch):
     """The packaged settings.yaml — CIFAR-100 files, AutoAugment, remat,
     biases and the Kohonen SOM — trains as it is, on a tiny CIFAR tree at a
-    small batch; several processes are still refused."""
+    small batch.  Under NVIT_MULTIHOST=1 with the JAX coordinator variables
+    the same command re-executes itself under torch.distributed.run, one
+    process per card of this "host" (tests/test_torch_dp_cli.py runs it)."""
     from tests.test_torch_remat import write_cifar100
 
     monkeypatch.chdir(tmp_path)
@@ -117,9 +120,22 @@ def test_train_cli_refuses_the_packaged_defaults_and_multihost(tmp_path, monkeyp
     evals = [x for x in lines if "val/loss" in x]
     assert evals and all(np.isfinite(evals[-1][f"val/{k}"]) for k in (
         "consistency_loss", "smoothness_loss", "local_quantization_loss", "global_quantization_loss"))
-    monkeypatch.setenv("NVIT_MULTIHOST", "1")
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    for k, v in {"NVIT_MULTIHOST": "1", "JAX_COORDINATOR_ADDRESS": "localhost:1234",
+                 "JAX_NUM_PROCESSES": "2", "JAX_PROCESS_ID": "1"}.items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    launched = []
+
+    def execv(path, argv):
+        launched.append(argv)
+        raise SystemExit(0)
+
+    monkeypatch.setattr(os, "execv", execv)
+    with pytest.raises(SystemExit):
         train_main()
+    (argv,) = launched
+    assert argv[1:] == ["-m", "torch.distributed.run", "--nnodes=2", "--node_rank=1", "--master_addr=localhost",
+                        "--master_port=1234", "--nproc_per_node=1", "-m", "nvit_tpu_torch"]
 
 
 def test_export_cli(tmp_path, capsys):

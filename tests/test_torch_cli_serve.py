@@ -1,5 +1,5 @@
 """The port's serve CLI on the CPU (a companion of tests/test_torch_cli.py):
-``--data-parallel`` and ``--model-parallel 2`` refused by name,
+``--model-parallel 2`` refused by name, ``--data-parallel`` serving,
 ``InferenceService.warmup(all_buckets=True)`` on the JAX package's bucket
 ladder, and one run in a subprocess (an export served over HTTP, SIGHUP
 reload, SIGTERM drain)."""
@@ -28,13 +28,43 @@ from tests.torch_cli_cases import REPO, clean_environment, tiny_checkpoint  # no
 torch.set_num_threads(1)
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--data-parallel"], "multi-GPU"), (["--model-parallel", "2"], "multi-GPU"),
-])
+@pytest.mark.parametrize("flags,item", [(["--model-parallel", "2"], "slice 16")])
 def test_serve_cli_refuses_unported_options(capsys, flags, item):
     with pytest.raises(SystemExit) as exit_info:
         serve_main(flags)
     assert exit_info.value.code == 2 and item in capsys.readouterr().err
+
+
+def test_serve_cli_data_parallel_serves_the_replicated_predictor(tmp_path, monkeypatch, capsys):
+    """``--data-parallel`` builds ``Predictor(data_parallel=True)`` (on the
+    CPU one replica: the CPU is one device) and serves its probabilities."""
+    import nvit_tpu_torch.serve as serve
+
+    tiny_checkpoint(tmp_path)
+    services = []
+    make_handler = serve.make_handler
+    monkeypatch.setattr(serve, "make_handler", lambda service: services.append(service) or make_handler(service))
+
+    class NoServer:  # stands in for the HTTP server: serve_forever returns at once
+        def __init__(self, address, handler):
+            self.server_address = address
+
+        def serve_forever(self):
+            pass
+
+        def server_close(self):
+            pass
+
+    monkeypatch.setattr(serve, "ThreadingHTTPServer", NoServer)
+    monkeypatch.setattr(serve.signal, "signal", lambda *args: None)  # this process keeps its handlers
+    serve_main(["--checkpoint", str(tmp_path), "--data-parallel", "--device", "cpu", "--port", "0"])
+    assert "drained; exiting" in capsys.readouterr().out
+    (service,) = services
+    pred = service.predictor
+    assert pred.batch_multiple == 1 and pred.devices == [torch.device("cpu")]
+    images = np.random.default_rng(3).integers(0, 256, (3, 3, 16, 16), dtype=np.uint8)
+    want = Predictor.from_checkpoint(tmp_path, device="cpu").predict_probs(images)
+    np.testing.assert_array_equal(pred.predict_probs(images), want)
 
 
 @pytest.mark.parametrize("max_batch", [1, 5, 8, 24])

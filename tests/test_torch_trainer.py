@@ -98,7 +98,7 @@ def test_trainer_takes_the_checkpoint_settings(tmp_path, kw):
 
 
 @pytest.mark.parametrize("section,kw,item", [
-    ("system", dict(model_parallel=2), "multi-GPU"),
+    ("system", dict(model_parallel=2), "slice 16"),
     ("data", dict(checkpoint_backend="orbax"), "do-not-port"),
 ])
 def test_trainer_refuses_unported_settings(tmp_path, section, kw, item):
