@@ -181,6 +181,27 @@ then this slice's path:
                cuda:0])`` served as in phase 6 at batches 1, 4 and 32 (K1, K3
                and the prologue 13 times a replica-forward) against the one
                replica's forward.
+16. tensor parallel and FSDP — path A (flagship_config(bias=True), biases
+               random, global batch 32, bf16): two ranks on the one card over
+               gloo (``chip_smoke.py --tp-worker``), data 1 × model 2 through
+               ``Trainer`` (``system.model_parallel=2``): each rank's
+               parameters and moments (``memory_allocated``) against one
+               card's, the global batch's loss and per-group gradients
+               (gathered from the shards) against one card's (phase 8's
+               bounds), one step launching K1, K2, K6 and its backward 13
+               times and the prologue 26 — K1 at 12 heads once and 6 heads
+               12 times, K6 at H = 768 once and 1536 12 times — and no other
+               kernel, the replicated parameters bit-equal across the ranks
+               after each of 3 steps, the steps' ms (gloo through the host,
+               not NVLink); gloo's all-gather and reduce-scatter on CUDA
+               tensors probed, and if they run, data 2 × model 1 with
+               ``system.fsdp``: half of each trunk matrix and its moments a
+               rank, 3 steps against the unsharded two-rank step (relative
+               L2 ≤ 1e-5), the renorm's norms 1 within 1e-5;
+               ``Predictor(model_parallel=2, devices=[cuda:0, cuda:0])`` at
+               batch 32 against one card, and served as in phase 6 (K1, K6
+               and the prologue 25 times a forward: the cross-attention
+               once, each block once a shard).
 
 K9 is not on any main path (T = 784 ≤ 1024 takes K8), nor is K10 (only the
 bench runs it), so their launch counts in the summary are 0 per training
@@ -192,7 +213,9 @@ and the prologue; ``path_launches`` per full path, per step of phase 13's
 bf16-moment step, and per forward of phase 14's modes — ``int8``,
 ``aot-32``, ``aot-32-int8``, ``aot-symbolic`` — and the debug CLI's
 forward, per step of a rank of phase 15's two, ``data-parallel-step``, and
-per replica-forward of its two replicas, ``data-parallel-forward``;
+per replica-forward of its two replicas, ``data-parallel-forward``, per
+step of a model rank of phase 16's two, ``tensor-parallel-step``, and per
+forward of its two model shards, ``tensor-parallel-forward``;
 ``profile_launches`` per profile); the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -242,6 +265,12 @@ K10_REL_L2 = 1e-3
 # relative L2 (the paths round at different points, as in serving)
 TRAIN_LOSS_RTOL = 0.01
 GRAD_REL_L2 = 5e-2
+# FSDP against the unsharded two-rank step after three bf16 steps: the same
+# products on the same gathered weights; only the clip's norm is summed in
+# another order (relative L2 of all parameters)
+FSDP_REL_L2 = 1e-5
+# |‖w‖ − 1| of the renormed trunk matrices, in fp32
+RENORM_TOL = 1e-5
 
 # NVIDIA's data sheet, H100 SXM: HBM3 rate (the dense bf16 peak is the
 # trainer's, train.trainer.device_peak_flops)
@@ -980,7 +1009,8 @@ def get(addr, path):
     return payload
 
 
-def serve_phase(title, path, cfg, pred, plain, *, replicas: int = 1, versus: str = "the plain path") -> dict:
+def serve_phase(title, path, cfg, pred, plain, *, replicas: int = 1, versus: str = "the plain path",
+                passes: int | None = None) -> dict:
     from http.server import ThreadingHTTPServer
 
     from nvit_tpu_torch.data.augment import normalize
@@ -1022,7 +1052,8 @@ def serve_phase(title, path, cfg, pred, plain, *, replicas: int = 1, versus: str
     check(stats["requests"] == 3 and stats["images"] == 37 and stats["errors"] == 0, "bad /stats counts")
     forwards = stats["device_programs"]
     check(forwards == 3, f"expected 3 device forwards, /stats counts {forwards}")
-    per_forward = n_passes(cfg.model)
+    # passes: a tensor-parallel forward runs each block's kernels once a shard
+    per_forward = n_passes(cfg.model) if passes is None else passes
     print(f"launches in the served run: {launches} over {forwards} forwards")
     # each forward runs once on every replica of a data-parallel Predictor
     check_launches(launches, per_pass(PATHS[path]["forward"], per_forward * forwards * replicas),
@@ -3035,32 +3066,7 @@ def data_parallel_phase(smi: str) -> dict:
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_dp_"))
     try:
         # two ranks, two processes, one card, gloo
-        port = str(free_port())
-        env = {k: v for k, v in os.environ.items() if not k.startswith("NVIT_")}
-        env["PYTHONPATH"] = str(Path(__file__).resolve().parent)
-        logs = [open(root / f"worker{r}.log", "w+") for r in range(DP_WORLD)]
-        procs = [subprocess.Popen(
-            [sys.executable, str(Path(__file__).resolve()), "--dp-worker", str(root)],
-            env={**env, "RANK": str(r), "WORLD_SIZE": str(DP_WORLD), "LOCAL_RANK": "0",
-                 "MASTER_ADDR": "localhost", "MASTER_PORT": port},
-            stdout=logs[r], stderr=subprocess.STDOUT) for r in range(DP_WORLD)]
-        t0 = time.perf_counter()
-        try:
-            for p in procs:
-                p.wait(timeout=max(1.0, DP_TIMEOUT_S - (time.perf_counter() - t0)))
-        except subprocess.TimeoutExpired:
-            pass
-        finally:
-            for p in procs:  # stop every process this script starts
-                if p.poll() is None:
-                    p.kill()
-                p.wait()
-        worker_s = time.perf_counter() - t0
-        for r, (p, log) in enumerate(zip(procs, logs)):
-            log.seek(0)
-            text = log.read()
-            log.close()
-            check(p.returncode == 0, f"data-parallel rank {r} exited {p.returncode}:\n" + text[-4000:])
+        _, worker_s = run_workers("--dp-worker", root, DP_WORLD)
         res = [json.loads((root / f"rank{r}.json").read_text()) for r in range(DP_WORLD)]
         m = flagship_config().model
         want = per_pass(PATHS["nvit"]["step"], n_passes(m))
@@ -3135,6 +3141,320 @@ def data_parallel_phase(smi: str) -> dict:
     forwards = 3 * 2  # three requests, two replica-forwards each
     return {"data-parallel-step": res[0]["launches"],
             "data-parallel-forward": {k: v // forwards for k, v in served.items()}}
+
+
+# the tensor-parallel and FSDP phase: two ranks of path A on the one card
+TP_WORLD = 2
+
+
+def gloo_takes_fsdp_collectives(group) -> bool:
+    """Whether gloo runs FSDP's all-gather and reduce-scatter on CUDA
+    tensors (PyTorch's backend table lists only broadcast and all-reduce
+    there): both ranks call both on a small tensor; a refusal raises on
+    each before anything is sent."""
+    import torch.distributed as dist
+
+    from nvit_tpu_torch.parallel.tensor import _reduce_scatter
+
+    x = torch.full((4,), float(group.rank + 1), device="cuda")
+    try:
+        out = x.new_empty(4 * group.world)
+        dist.all_gather_into_tensor(out, x)
+        part = x.new_empty(4 // group.world)
+        _reduce_scatter(part, x)
+    except RuntimeError as e:
+        print(f"rank {group.rank}: gloo refuses FSDP's collectives on CUDA tensors: {e}", flush=True)
+        return False
+    return (bool(torch.equal(out, torch.tensor([1.0] * 4 + [2.0] * 4, device="cuda")))
+            and bool(torch.all(part == 3.0).item()))
+
+
+def tp_worker(out: Path) -> int:
+    """One rank of phase 16's two-rank runs: ``python3 chip_smoke.py
+    --tp-worker OUT``, started as ``--dp-worker`` is (both ranks on cuda:0,
+    gloo).  Path A (``flagship_config(bias=True)``, biases randomised) at
+    global batch 32, bf16: data 1 × model 2, then — when gloo takes FSDP's
+    collectives on CUDA tensors — data 2 × model 1 with ``system.fsdp``
+    against the unsharded two-rank step.  Writes ``OUT/tp_rank<r>.json``."""
+    import gc
+    import re
+    import tempfile
+    from unittest import mock
+
+    from nvit_tpu_torch.models.presets import flagship_config
+    from nvit_tpu_torch.ops import flash_attention as fa
+    from nvit_tpu_torch.ops import gated_mlp as gm
+    from nvit_tpu_torch.parallel.mesh import any_flag, broadcast_, destroy, init_data_parallel, shard_dim
+    from nvit_tpu_torch.scripts.step_time import sync_step
+    from nvit_tpu_torch.train import trainer as trainer_mod
+    from nvit_tpu_torch.train.state import create_train_state
+    from nvit_tpu_torch.train.step import make_loss_fn, reduce_gradients_
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    group = init_data_parallel("cuda", backend="gloo", timeout_s=DP_TIMEOUT_S)
+    r = group.rank
+    base = flagship_config(bias=True)
+
+    def config(**system):
+        return dataclasses.replace(
+            base, system=dataclasses.replace(base.system, use_ddp=True, **system),
+            data=dataclasses.replace(base.data, dataset="synthetic",
+                                     out_dir=tempfile.mkdtemp(prefix=f"chip_smoke_tp{r}_")))
+
+    def with_biases(cfg, seed=None, *, device):  # the same random biases on every rank, before any shard
+        state = create_train_state(cfg, seed, device=device)
+        randomize_biases(state.model, seed=2)
+        return state
+
+    def trainer_for(cfg):
+        with mock.patch.object(trainer_mod, "create_train_state", with_biases):
+            return trainer_mod.Trainer(cfg, device="cuda", group=group)
+
+    def state_bytes() -> int:
+        gc.collect()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_allocated()
+
+    def replicated_equal(model) -> bool:
+        mine = torch.cat([p.detach().reshape(-1) for n, p in model.named_parameters() if shard_dim(n) is None])
+        theirs = mine.clone()
+        broadcast_(group, [theirs])
+        return not any_flag(group, not torch.equal(as_bytes(mine), as_bytes(theirs)))
+
+    _, images, labels = batch32(base.model)
+    res: dict = {"rank": r}
+    groups = {**GRAD_GROUPS, **BIAS_GROUPS}
+
+    # (a) data 1 × model 2: the state, the global batch's gradients, three steps
+    held = state_bytes()
+    cfg = config(model_parallel=2)
+    trainer = trainer_for(cfg)
+    state, model, mesh = trainer.state, trainer.state.model, trainer.mesh
+    res["state_gib"] = (state_bytes() - held) / 2**30
+    res["coords"] = [mesh.data.rank, mesh.model.rank]
+    loss, _ = make_loss_fn(cfg)(model, images, labels)
+    loss.backward()
+    params = dict(model.named_parameters())
+    grads = {n: p.grad for n, p in params.items() if p.grad is not None}
+    reduce_gradients_(mesh, grads, {}, {})
+    whole = {n: mesh.gather(n, g) for n, g in grads.items()}
+    model.zero_grad(set_to_none=True)
+    del grads
+    if r == 0:  # one card: the same weights, the same 32 rows
+        held1 = state_bytes()
+        one = with_biases(dataclasses.replace(cfg, system=dataclasses.replace(cfg.system, model_parallel=1)),
+                          device="cuda")
+        res["one_card_state_gib"] = (state_bytes() - held1) / 2**30
+        one_loss, _ = make_loss_fn(cfg)(one.model, images, labels)
+        one_loss.backward()
+        ref = {n: p.grad for n, p in one.model.named_parameters() if p.grad is not None}
+        res["loss"] = [loss.item(), one_loss.item()]
+        res["grad_names"] = [sorted(whole), sorted(ref)]
+        res["grad_rel_l2"] = {}
+        for name, pattern in groups.items():
+            names = [n for n in ref if re.fullmatch(pattern, n)]
+            res["grad_rel_l2"][name] = rel_l2(torch.cat([whole[n].flatten() for n in names]),
+                                              torch.cat([ref[n].flatten() for n in names]))
+        del one, ref, one_loss
+    del whole, loss
+    state_bytes()
+
+    # the shapes the kernels see: heads of K1, H of K6.  A spy keeps its
+    # wrapper's counters, which the wrapper bumps through its module's name
+    heads, hidden = Counter(), Counter()
+
+    def spy(fn, record):
+        def wrapped(*args, **kwargs):
+            record(*args)
+            return fn(*args, **kwargs)
+        for attr in ("launches", "launches_bounded", "launches_auto", "launches_bias"):
+            if hasattr(fn, attr):
+                setattr(wrapped, attr, getattr(fn, attr))
+        return wrapped
+
+    step = trainer._train_step
+    res["step_ms"], res["bit_equal"] = [], []
+    for i in range(3):
+        t0 = time.perf_counter()
+        if i == 0:  # counted from 0, read before the spies go
+            reset_counts()
+            with mock.patch.object(fa, "qknorm_attention_fwd", spy(fa.qknorm_attention_fwd,
+                                                                    lambda q, *_: heads.update([q.shape[1]]))), \
+                    mock.patch.object(gm, "gated_mlp_fwd", spy(gm.gated_mlp_fwd,
+                                                              lambda x, w, *_: hidden.update([w.shape[0] // 2]))):
+                sync_step(step, state, images, labels)
+                res["launches"] = read_counts()
+        else:
+            sync_step(step, state, images, labels)
+        res["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        res["bit_equal"].append(replicated_equal(model))
+    res["heads"], res["hidden"] = dict(heads), dict(hidden)
+    res["c_fc_shape"] = list(params["transformer.h.0.c_fc.weight"].shape)
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del trainer, state, model, params, step
+    state_bytes()
+
+    # (c) data 2 × model 1 with FSDP, against the unsharded two-rank step
+    res["fsdp_collectives"] = gloo_takes_fsdp_collectives(group)
+    if res["fsdp_collectives"]:
+        b = images.shape[0] // 2
+        rows = slice(r * b, (r + 1) * b)
+        after = {}
+        for name, system in (("dp", dict(model_parallel=1)), ("fsdp", dict(model_parallel=1, fsdp=True))):
+            held = state_bytes()
+            t = trainer_for(config(**system))
+            res[f"{name}_state_gib"] = (state_bytes() - held) / 2**30
+            ms = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                sync_step(t._train_step, t.state, images[rows], labels[rows])
+                ms.append((time.perf_counter() - t0) * 1e3)
+            res[f"{name}_step_ms"] = ms
+            named = dict(t.state.model.named_parameters())
+            if name == "fsdp":
+                res["fsdp_shapes"] = {n: [list(named[n].shape), list(t.state.opt_state.mu[n].shape)]
+                                      for n in ("transformer.h.0.c_fc.weight", "transformer.h.0.att_c_proj.weight")}
+                worst = 0.0
+                for n, p in named.items():
+                    if shard_dim(n) is not None and n.endswith(".weight"):
+                        norms = torch.linalg.vector_norm(p.detach().float(), dim=1 - shard_dim(n))
+                        worst = max(worst, (norms - 1).abs().max().item())
+                res["renorm_worst"] = worst
+            # on the host: the next leg's state is measured without it
+            after[name] = {n: t.mesh.gather(n, p.detach()).cpu() for n, p in named.items()}
+            del t, named
+            state_bytes()
+        res["fsdp_rel_l2"] = rel_l2(torch.cat([after["fsdp"][n].flatten() for n in after["dp"]]),
+                                    torch.cat([after["dp"][n].flatten() for n in after["dp"]]))
+        res["fsdp_max_err"] = max(max_err(after["fsdp"][n], after["dp"][n]) for n in after["dp"])
+    destroy(group)
+    (out / f"tp_rank{r}.json").write_text(json.dumps(res))
+    return 0
+
+
+def run_workers(flag: str, root: Path, world: int) -> tuple[list, float]:
+    """``world`` processes of ``chip_smoke.py <flag> root`` on cuda:0 (gloo)
+    → (their exit codes' checks done, their wall seconds)."""
+    port = str(free_port())
+    env = {k: v for k, v in os.environ.items() if not k.startswith("NVIT_")}
+    env["PYTHONPATH"] = str(Path(__file__).resolve().parent)
+    logs = [open(root / f"{flag.strip('-')}{r}.log", "w+") for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), flag, str(root)],
+        env={**env, "RANK": str(r), "WORLD_SIZE": str(world), "LOCAL_RANK": "0",
+             "MASTER_ADDR": "localhost", "MASTER_PORT": port},
+        stdout=logs[r], stderr=subprocess.STDOUT) for r in range(world)]
+    t0 = time.perf_counter()
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, DP_TIMEOUT_S - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:  # stop every process this script starts
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    seconds = time.perf_counter() - t0
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        log.seek(0)
+        text = log.read()
+        log.close()
+        check(p.returncode == 0, f"{flag} rank {r} exited {p.returncode}:\n" + text[-4000:])
+    return procs, seconds
+
+
+def tensor_parallel_phase(smi: str) -> dict:
+    """Phase 16 → path_launches of a tensor-parallel rank's step and of the
+    two-shard serving forward (both shards, per forward)."""
+    import shutil
+    import tempfile
+
+    from nvit_tpu_torch.infer import Predictor
+    from nvit_tpu_torch.models.presets import flagship_config
+
+    phase("tensor parallel and FSDP, path A (flagship_config(bias=True): global batch 32, bf16): two ranks on "
+          "cuda:0 over gloo, data 1 × model 2, then data 2 × model 1 with system.fsdp; "
+          "Predictor(model_parallel=2, devices=[cuda:0, cuda:0]) over HTTP")
+    t_phase = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_tp_"))
+    try:
+        _, worker_s = run_workers("--tp-worker", root, TP_WORLD)
+        res = [json.loads((root / f"tp_rank{r}.json").read_text()) for r in range(TP_WORLD)]
+        m = flagship_config(bias=True).model
+        want = per_pass(PATHS["nvit-bias"]["step"], n_passes(m))
+        # the cross-attention on all heads and the whole gated width, the blocks on the rank's share
+        want_heads = {str(m.n_head): 1, str(m.n_head // 2): m.n_layer}
+        want_hidden = {str(m.n_embd): 1, str(4 * m.n_embd // 2): m.n_layer}
+        for got in res:
+            r = got["rank"]
+            print(f"rank {r} (data, model) = {tuple(got['coords'])}: launches in one step {got['launches']}; "
+                  f"K1 heads a call {got['heads']}, K6 H a call {got['hidden']}")
+            check_launches(got["launches"], want, f"tensor-parallel rank {r}")
+            check({str(k): v for k, v in got["heads"].items()} == want_heads, f"rank {r}: K1's heads {got['heads']}")
+            check({str(k): v for k, v in got["hidden"].items()} == want_hidden, f"rank {r}: K6's H {got['hidden']}")
+            check(got["c_fc_shape"] == [8 * m.n_embd // 2, m.n_embd], f"rank {r}: c_fc shard {got['c_fc_shape']}")
+            check(all(got["bit_equal"]), f"rank {r}: the replicated parameters differ after a step")
+        tp_loss, one_loss = res[0]["loss"]
+        gap = abs(tp_loss - one_loss) / abs(one_loss)
+        print(f"global batch 32: loss over model 2 {tp_loss:.6f}, one card {one_loss:.6f} (relative gap "
+              f"{gap:.3e}, bound {TRAIN_LOSS_RTOL})")
+        for name, rel in res[0]["grad_rel_l2"].items():
+            print(f"grad {name}: two model ranks against one card, relative L2 {rel:.3e} (bound {GRAD_REL_L2})")
+        check(gap <= TRAIN_LOSS_RTOL, "the model ranks' loss disagrees with one card's")
+        check(res[0]["grad_names"][0] == res[0]["grad_names"][1], "the model ranks have other gradients")
+        check(max(res[0]["grad_rel_l2"].values()) <= GRAD_REL_L2, "the model ranks' gradients disagree")
+        one_gib = res[0]["one_card_state_gib"]
+        for got in res:
+            print(f"rank {got['rank']}: parameters + moments {got['state_gib']:.3f} GiB against one card's "
+                  f"{one_gib:.3f} GiB (torch.cuda.memory_allocated); steps "
+                  f"{', '.join(f'{x:.1f}' for x in got['step_ms'])} ms (the row-parallel all-reduces through "
+                  f"the host: gloo, both ranks on one card, not NVLink), peak {got['peak_gib']:.2f} GiB [{smi}]")
+        check(all(got["state_gib"] < 0.75 * one_gib for got in res), "a model rank holds most of one card's state")
+        if res[0]["fsdp_collectives"]:
+            for got in res:
+                print(f"rank {got['rank']} FSDP: shapes (param, mu) {got['fsdp_shapes']}; parameters + moments "
+                      f"{got['fsdp_state_gib']:.3f} GiB against {got['dp_state_gib']:.3f} unsharded; steps "
+                      f"{', '.join(f'{x:.1f}' for x in got['fsdp_step_ms'])} ms against "
+                      f"{', '.join(f'{x:.1f}' for x in got['dp_step_ms'])} ms (gloo through the host) [{smi}]")
+                check(got["fsdp_shapes"]["transformer.h.0.c_fc.weight"] == [[4 * m.n_embd, m.n_embd]] * 2
+                      and got["fsdp_shapes"]["transformer.h.0.att_c_proj.weight"]
+                      == [[m.n_embd, m.n_embd // 2]] * 2, f"rank {got['rank']}: FSDP pieces")
+                print(f"rank {got['rank']}: after 3 steps FSDP against the unsharded two-rank step: relative L2 "
+                      f"{got['fsdp_rel_l2']:.3e}, max|Δ| {got['fsdp_max_err']:.3e}; renorm |‖w‖ − 1| ≤ "
+                      f"{got['renorm_worst']:.3e}")
+                check(got["fsdp_rel_l2"] <= FSDP_REL_L2, "FSDP's parameters disagree with the unsharded step")
+                check(got["renorm_worst"] <= RENORM_TOL, "FSDP's renorm norms are not 1")
+                check(got["fsdp_state_gib"] < 0.75 * got["dp_state_gib"], "an FSDP rank holds most of the state")
+        else:
+            print("gloo refuses all_gather_into_tensor / reduce_scatter_tensor on CUDA tensors: no FSDP leg on "
+                  "this card; FSDP across ranks is held on the CPU only")
+        print(f"tensor-parallel workers: {worker_s:.1f} s")
+
+        # two model shards on cuda:0 behind the HTTP service, against one card
+        cfg = flagship_config(bias=True)
+        one = Predictor.from_config(cfg, seed=0, device="cuda")
+        randomize_biases(one.model, seed=2)
+        tp = Predictor(one.model.state_dict(), cfg.model, device="cuda", model_parallel=2,
+                       devices=["cuda:0", "cuda:0"])
+        check(tp.layout["model"] == 2 and tp.batch_multiple == 1, f"layout {tp.layout}")
+        x = np.random.default_rng(9).integers(0, 256, (32, 3, 224, 224), dtype=np.uint8)
+        p_tp, p_one = tp.predict_probs(x), one.predict_probs(x)
+        dp = float(np.abs(p_tp - p_one).max())
+        top1 = float((p_tp.argmax(-1) == p_one.argmax(-1)).mean())
+        print(f"batch 32: two model shards against one card: max|Δprob| {dp:.3e} (bound {PROB_RTOL} × prob + 1e-6), "
+              f"top-1 agreement {top1:.3f}")
+        check(np.all(np.abs(p_tp - p_one) <= PROB_RTOL * p_one + 1e-6), "the model shards disagree with one card")
+        served = serve_phase("nViT-B/16 path A on two model shards (Predictor(model_parallel=2, devices=[cuda:0, "
+                             "cuda:0]))", "nvit-bias", cfg, tp, one, versus="one card",
+                             passes=1 + 2 * cfg.model.n_layer)
+        del tp, one
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"tensor-parallel phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"tensor-parallel-step": res[0]["launches"],
+            "tensor-parallel-forward": {k: v // 3 for k, v in served.items()}}
 
 
 def main() -> int:
@@ -3236,6 +3556,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     # data parallelism: one step of a rank of two, one forward of a replica of two
     by_path.update(data_parallel_phase(smi))
+    gc.collect()
+    torch.cuda.empty_cache()
+    # tensor parallelism: one step of a model rank of two, one two-shard forward
+    by_path.update(tensor_parallel_phase(smi))
 
     # launches: the flagship paths' (above; the Kohonen flagship's last);
     # path_launches: each full path's own; profile_launches: one step of
@@ -3259,4 +3583,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-worker"]:  # one rank of phase 15, started by the phase
         sys.exit(dp_worker(Path(sys.argv[2])))
+    if sys.argv[1:2] == ["--tp-worker"]:  # one rank of phase 16, started by the phase
+        sys.exit(tp_worker(Path(sys.argv[2])))
     sys.exit(main())

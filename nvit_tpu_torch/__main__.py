@@ -25,9 +25,16 @@ variables (``JAX_COORDINATOR_ADDRESS=host:port``, ``JAX_NUM_PROCESSES``,
     torchrun --nproc_per_node=2 -m nvit_tpu_torch
     NVIT_SYSTEM__DEVICE=cpu torchrun --nproc_per_node=2 -m nvit_tpu_torch   # gloo
 
-Settings the port has not ported raise ``NotImplementedError`` naming their
-ROADMAP.md item (``system.model_parallel > 1`` and ``system.fsdp`` across
-ranks: slice 16).
+The launched world is the card count; ``system.model_parallel`` carves
+the model axis out of it (M consecutive ranks share one model: tensor
+parallelism), and ``system.fsdp`` cuts the trunk again over the data ranks
+(``parallel/mesh.py``)::
+
+    NVIT_SYSTEM__MODEL_PARALLEL=2 torchrun --nproc_per_node=4 -m nvit_tpu_torch   # data 2 × model 2
+    NVIT_SYSTEM__FSDP=true torchrun --nproc_per_node=4 -m nvit_tpu_torch          # data 4, FSDP
+
+Orbax checkpoints, on ROADMAP.md's do-not-port list, raise
+``NotImplementedError``.
 """
 
 from nvit_tpu_torch.train.trainer import main

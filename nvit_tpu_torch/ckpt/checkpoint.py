@@ -20,6 +20,15 @@ scalar ``metrics``, the Trainer's protocol state (``trainer``), the whole
 * Data parallelism changes nothing here: every rank holds the whole state,
   rank 0 alone saves (the Trainer), and each rank restores onto its own
   ``device``; a checkpoint of a run on N ranks is the same file.
+* Under tensor parallelism or FSDP every rank calls ``gathered_leaves``,
+  which brings every piece of the parameters and moments to rank 0
+  (``Mesh.gather``, bit-exact); rank 0 writes the same npz leaves and json
+  meta as one card, and nothing else writes.  A restore reads the whole
+  leaves on every rank, which keeps its pieces (``train.state.shard_state_``),
+  so a run resumes on any layout, or on one process.  Across hosts the JAX
+  trainer switches to orbax, whose arrays each host writes for itself; the
+  port needs no such switch: ``torch.distributed``'s collectives reach rank 0
+  from every host, so npz stays the one format.
 """
 
 from __future__ import annotations
@@ -44,15 +53,28 @@ from nvit_tpu_torch.train.state import TrainState
 FORMAT = "nvit_tpu.ckpt.v1"
 
 
-def state_leaves(state: TrainState) -> list[np.ndarray]:
-    """Host copies of every leaf of ``state`` in the JAX ``TrainState``'s order."""
+def state_leaves(state: TrainState, params=None, mu=None, nu=None) -> list[np.ndarray]:
+    """Host copies of every leaf of ``state`` in the JAX ``TrainState``'s
+    order; ``params``/``mu``/``nu`` (whole tensors by name) in place of the
+    state's own."""
     cfg = state.model.cfg
     opt = state.opt_state
-    trees = (jax_params_from_state_dict(state.model.state_dict(), cfg),
-             jax_params_from_state_dict(opt.mu, cfg), jax_params_from_state_dict(opt.nu, cfg))
+    trees = (jax_params_from_state_dict(state.model.state_dict() if params is None else params, cfg),
+             jax_params_from_state_dict(opt.mu if mu is None else mu, cfg),
+             jax_params_from_state_dict(opt.nu if nu is None else nu, cfg))
     params, mu, nu = ([leaf for _, leaf in flatten(t)] for t in trees)
     return [*params, np.array(opt.count, np.int32), *mu, *nu,
             np.array(state.step, np.int32), np.array(state.rng, np.uint32)]
+
+
+def gathered_leaves(state: TrainState, mesh) -> list[np.ndarray] | None:
+    """Every rank calls this: the whole state's leaves on rank 0 (None on
+    the others), from every rank's pieces (``mesh``, a ``parallel/mesh.Mesh``)."""
+    def whole(named):
+        return {n: mesh.gather(n, t) for n, t in named.items()}
+
+    params, mu, nu = (whole(x) for x in (state.model.state_dict(), state.opt_state.mu, state.opt_state.nu))
+    return state_leaves(state, params, mu, nu) if mesh.group.rank == 0 else None
 
 
 def write_files(out_dir: Path, name: str, leaves: list[np.ndarray], meta: dict[str, Any]) -> Path:
@@ -69,8 +91,9 @@ def write_files(out_dir: Path, name: str, leaves: list[np.ndarray], meta: dict[s
 
 
 def _snapshot(state: TrainState, config: Config, metrics: dict[str, Any] | None,
-              trainer_state: dict[str, Any] | None) -> tuple[list[np.ndarray], dict[str, Any]]:
-    leaves = state_leaves(state)
+              trainer_state: dict[str, Any] | None,
+              leaves: list[np.ndarray] | None = None) -> tuple[list[np.ndarray], dict[str, Any]]:
+    leaves = state_leaves(state) if leaves is None else leaves
     meta = {
         "iter_num": int(state.step),
         # scalars only (the JAX meta's rule); the trainer logs None for an MFU it cannot know
@@ -118,12 +141,14 @@ class PendingSave(threading.Thread):
 
 def save_checkpoint_async(out_dir: str | Path, name: str, state: TrainState, config: Config,
                           metrics: dict[str, Any] | None = None,
-                          trainer_state: dict[str, Any] | None = None) -> PendingSave:
+                          trainer_state: dict[str, Any] | None = None,
+                          leaves: list[np.ndarray] | None = None) -> PendingSave:
     """Copy the state to the host now, write the files on a thread.  Call
-    ``result()`` before writing the same name again (the Trainer does)."""
+    ``result()`` before writing the same name again (the Trainer does).
+    ``leaves``: the host copy already made (``gathered_leaves``)."""
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
-    pending = PendingSave(out_dir, name, *_snapshot(state, config, metrics, trainer_state))
+    pending = PendingSave(out_dir, name, *_snapshot(state, config, metrics, trainer_state, leaves))
     pending.start()
     return pending
 

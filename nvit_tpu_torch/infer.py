@@ -16,7 +16,10 @@ optimizer.  The forward runs the port's kernels where the model's config
 selects them.  ``quantize="int8"`` serves w8a8 (``ops/quant.py``): int8
 linears on ``torch._int_mm``, attention still on K1/K5 or K7.
 ``data_parallel=True`` keeps one replica per card (or per entry of
-``devices=[...]``) and splits every batch over them.
+``devices=[...]``) and splits every batch over them; ``model_parallel=N``
+shards each replica's trunk over N of them (tensor parallelism, in this
+one process), and without ``data_parallel`` every device goes to the model
+axis.
 """
 
 from __future__ import annotations
@@ -36,6 +39,8 @@ from nvit_tpu_torch.configs import Config, ViTConfig
 from nvit_tpu_torch.data.augment import normalize
 from nvit_tpu_torch.models.vit import ViT
 from nvit_tpu_torch.ops.quant import int8_skeleton, quantize_vit
+from nvit_tpu_torch.parallel.mesh import Axis
+from nvit_tpu_torch.parallel.tensor import LocalShards
 
 
 def topk_from_probs(probs: np.ndarray, top_k: int) -> tuple[np.ndarray, np.ndarray]:
@@ -68,26 +73,41 @@ class Predictor:
         card, or ``device`` alone on the CPU; a device may be listed twice —
         pads each batch to a multiple of their count, launches every chunk
         on its replica before it gathers any, so the cards overlap, and
-        returns the one-replica probabilities.  It composes with int8."""
+        returns the one-replica probabilities.  It composes with int8.
+
+        ``model_parallel=N`` (≙ infer.py:59-96, the ``model`` axis, with the
+        training layout of ``parallel/mesh.py``) shards each replica's trunk
+        over N consecutive ``devices``: every device (default every visible
+        card; on the CPU N times the CPU) goes to the model axis unless
+        ``data_parallel`` makes a data × model grid of them.  Each shard runs
+        the kernels on its heads and u|v columns; the partial products are
+        summed in shard order (``parallel/tensor.py::LocalShards``), so the
+        result does not depend on timing.  Not with int8."""
         if model_parallel < 1:
             raise ValueError(f"model_parallel must be >= 1, got {model_parallel}")
-        if model_parallel > 1:
-            raise NotImplementedError(
-                f"model_parallel={model_parallel} (tensor parallelism) is not ported yet: slice 16 "
-                "(ROADMAP.md, 'multi-GPU', item 10b)")
         if quantize not in (None, "int8"):
             raise ValueError(f"unknown quantize mode {quantize!r} (supported: 'int8')")
-        if devices is not None and not data_parallel:
-            raise ValueError("devices= lists the data-parallel replicas: pass data_parallel=True")
+        if quantize is not None and model_parallel > 1:
+            raise ValueError("model_parallel > 1 is not supported with quantize yet")
+        if devices is not None and not data_parallel and model_parallel == 1:
+            raise ValueError("devices= lists the data-parallel replicas or the model shards: pass "
+                             "data_parallel=True or model_parallel > 1")
         device = torch.device(device)
-        if not data_parallel:
+        if not data_parallel and model_parallel == 1:
             devices = [device]
         elif devices is None:
             devices = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-                       if device.type == "cuda" else [device])
+                       if device.type == "cuda" else [device] * model_parallel)
         devices = [torch.device(d) for d in devices]
+        n = len(devices)
         if not devices:
             raise ValueError("data_parallel=True with no device")
+        if n % model_parallel:
+            raise ValueError(f"{n} devices not divisible by model_parallel={model_parallel}")
+        if not data_parallel and model_parallel not in (1, n):
+            raise ValueError(f"model_parallel={model_parallel} without data_parallel would idle "
+                             f"{n - model_parallel} of {n} devices; pass data_parallel=True")
+        mp = model_parallel if data_parallel else n  # without data_parallel, every device is a shard
         self.cfg = model_cfg
         self.device = devices[0]
         self.compute_dtype = compute_dtype
@@ -102,8 +122,21 @@ class Predictor:
             quantize_vit(model)
         self.model = model.eval()
         self.devices = devices
-        self.replicas = [self.model, *(copy.deepcopy(self.model).to(d) for d in devices[1:])]
+        self.model_parallel = mp
+        # each replica's input device: the first of its model group
+        self._inputs = devices[::mp]
+        if mp == 1:
+            self.replicas = [self.model, *(copy.deepcopy(self.model).to(d) for d in devices[1:])]
+        else:
+            self.replicas = [tensor_parallel(m, devices[i * mp:(i + 1) * mp]) for i, m in enumerate(
+                [self.model, *(copy.deepcopy(self.model) for _ in self._inputs[1:])])]
         self.batch_multiple = len(self.replicas)  # each batch pads to a multiple of this
+
+    @property
+    def layout(self) -> dict:
+        """The serving layout: data replicas × model shards over the devices."""
+        return {"data": len(self.replicas), "model": self.model_parallel,
+                "devices": [str(d) for d in self.devices]}
 
     @classmethod
     def from_config(cls, cfg: Config, seed: int = 0, *, device: torch.device | str = "cuda",
@@ -138,7 +171,7 @@ class Predictor:
             x = np.concatenate([x, np.zeros((m - b % m, *x.shape[1:]), np.uint8)])
         outs = []
         with torch.inference_mode():
-            for model, dev, chunk in zip(self.replicas, self.devices, np.split(x, m)):
+            for model, dev, chunk in zip(self.replicas, self._inputs, np.split(x, m)):
                 # launched on every replica before any is gathered
                 with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
                     logits = model(normalize(torch.from_numpy(chunk).to(dev)),
@@ -150,3 +183,15 @@ class Predictor:
     def predict(self, images_u8, top_k: int = 1) -> tuple[np.ndarray, np.ndarray]:
         """→ (top-k class indices [B, k], probabilities [B, k])."""
         return topk_from_probs(self.predict_probs(images_u8), top_k)
+
+
+def tensor_parallel(model: ViT, devices: Sequence[torch.device]) -> ViT:
+    """``model`` with each trunk block replaced by its ``len(devices)``
+    model shards (``Block.shard_``), shard m on ``devices[m]``, run in this
+    process (``LocalShards``); the rest of the model on ``devices[0]``."""
+    model = model.to(devices[0])
+    blocks = model.transformer["h"]
+    for i, blk in enumerate(blocks):
+        n = len(devices)
+        blocks[i] = LocalShards([copy.deepcopy(blk).to(d).shard_(Axis(m, n)) for m, d in enumerate(devices)])
+    return model

@@ -13,6 +13,16 @@
 reference ``state_dict`` names (``query.weight`` ``[out, in]``, ``sqk``,
 ``rmsnorm_att.weight``, …) and apply them with the JAX package's casting and
 rounding contract.
+
+A ``Block`` may hold one rank's shard (``Block.shard_``, the layout of
+``parallel/mesh.py``): n_head/M heads of q/k/v and the rank's u and v rows
+of c_fc, on which K1/K2 (K5, K7/K8) and K3/K4 (K6) run unchanged.  Its
+forward is the same pieces either way — ``attn_partial`` / ``mlp_partial``
+up to the output projection, ``attn_output`` / ``mlp_output`` after it —
+with the Megatron pair around each partial under TP (``parallel/tensor.py``:
+f before, g after; the output projections' biases added once, after the
+sum), and each FSDP piece gathered at its use.  ``sqk`` and ``suv`` stay
+whole on every rank and are read at the rank's heads and rows.
 """
 
 from __future__ import annotations
@@ -28,8 +38,11 @@ from nvit_tpu_torch.core.layers import concat_linears, linear
 from nvit_tpu_torch.core.norms import rms_norm
 from nvit_tpu_torch.core.residual import slerp_residual
 from nvit_tpu_torch.ops.attention import attention, attention_qknorm
+from nvit_tpu_torch.ops.flash_attention import bounded_arm
 from nvit_tpu_torch.ops.gated_mlp import gated_mlp
 from nvit_tpu_torch.ops.quant import QuantParams
+from nvit_tpu_torch.parallel.mesh import Axis, block_param_specs, pairs_of, split
+from nvit_tpu_torch.parallel.tensor import enter_model, gather_data, reduce_model
 
 # fixed (init_value, init_scaling) constants of the learned scale vectors
 # (≙ blocks.py:40-44; the scaling of alpha and sqk is config.base_scale)
@@ -157,6 +170,8 @@ class Block(nn.Module):
         else:
             self.rmsnorm_att = RMSNorm(d, device=device)
             self.rmsnorm_mlp = RMSNorm(d, device=device)
+        self.tp: Axis | None = None  # the model axis, when the block is a TP shard
+        self.fsdp: Axis | None = None  # the data axis, when its shards are FSDP pieces
 
     @torch.no_grad()
     def init_weights(self, g: torch.Generator) -> None:
@@ -175,45 +190,138 @@ class Block(nn.Module):
             p.fill_(cfg.base_scale)
         self.suv.fill_(SUV_INIT_SCALING)
 
-    def forward(self, h: torch.Tensor, *, compute_dtype: torch.dtype | None = None) -> torch.Tensor:
-        """Block output WITHOUT the outer norm_skip (the ViT loop applies it)."""
-        cfg, dt = self.cfg, compute_dtype
-        nvit = cfg.use_nvit
-        x = h if nvit else self.rmsnorm_att(h)
+    # ------------------------------------------------ tensor parallelism, FSDP
+    @torch.no_grad()
+    def shard_(self, model: Axis, data: Axis | None = None) -> "Block":
+        """Keep this rank's pieces of the block (``parallel/mesh.py``'s
+        layout): model shard ``model.rank`` of ``model.world`` — its
+        n_head/M heads of q/k/v, its u and v rows of c_fc, its input columns
+        of the output projections — and, with ``data`` (FSDP), data piece
+        ``data.rank`` of that; the replicated vectors stay whole.  The
+        forward then reduces over ``model`` and gathers over ``data``."""
+        for name, dim in block_param_specs(self.cfg.use_nvit, self.cfg.bias).items():
+            if dim is None:
+                continue
+            module, _, attr = name.rpartition(".")
+            lin = getattr(self, module)
+            piece = split(getattr(lin, attr), dim, model.rank, model.world, pairs_of(name))
+            if data is not None:
+                piece = split(piece, dim, data.rank, data.world)
+            # a copy: a contiguous slice would be a view that keeps the whole alive
+            setattr(lin, attr, nn.Parameter(piece.clone(memory_format=torch.contiguous_format)))
+        self.tp = model if model.world > 1 else None
+        self.fsdp = data
+        return self
+
+    def _weight(self, lin: nn.Linear, dim: int):
+        """``lin``'s weight for the product: under FSDP its model shard,
+        gathered over the data axis."""
+        w = lin.weight
+        return w if self.fsdp is None or isinstance(w, QuantParams) else gather_data(w, dim, self.fsdp)
+
+    def _col_bias(self, lin: nn.Linear) -> torch.Tensor | None:
+        b = lin.bias
+        return b if b is None or self.fsdp is None else gather_data(b, 0, self.fsdp)
+
+    def _row_product(self, x: torch.Tensor, lin: nn.Linear, dt) -> torch.Tensor:
+        """x Wᵀ of an output projection: under TP the rank's partial sum,
+        without the bias (``_row_bias`` adds it once, after the sum)."""
+        return linear(x, self._weight(lin, 1), lin.bias if self.tp is None else None, compute_dtype=dt)
+
+    def _row_bias(self, y: torch.Tensor, lin: nn.Linear, dt) -> torch.Tensor:
+        if self.tp is None or lin.bias is None:
+            return y
+        return y + (lin.bias.to(y.dtype) if dt is not None else lin.bias)
+
+    def _heads(self) -> int:
+        return self.cfg.n_head // (1 if self.tp is None else self.tp.world)
+
+    def _sqk(self) -> tuple[torch.Tensor, str]:
+        """(the rank's heads' sqk_eff, the softmax mode): under TP "auto"
+        takes the arm the WHOLE model's sqk picks (≙ the one-device gate),
+        read here on the host, so every shard takes the same one."""
+        cfg = self.cfg
+        s, mode = sqk_eff(self.sqk, cfg), cfg.bounded_softmax
+        if self.tp is None:
+            return s, mode
+        if mode == "auto":
+            mode = "bounded" if bounded_arm(s.detach(), math.sqrt(cfg.head_dim), "auto") else "rowmax"
+        return split(s, 0, self.tp.rank, self.tp.world), mode
+
+    def _suv(self) -> torch.Tensor:
+        return self.suv if self.tp is None else split(self.suv, 0, self.tp.rank, self.tp.world, pairs=2)
+
+    # ------------------------------------------------------------- the pieces
+    def attn_input(self, h: torch.Tensor) -> torch.Tensor:
+        return h if self.cfg.use_nvit else self.rmsnorm_att(h)
+
+    def attn_partial(self, x: torch.Tensor, dt) -> torch.Tensor:
+        """The attention branch up to its output projection; under TP on
+        the rank's heads, a partial sum without the bias."""
+        cfg = self.cfg
         # fused QKV: one matmul reads x once (≙ blocks.py:140-142)
-        w_qkv, b_qkv = concat_linears([(m.weight, m.bias) for m in (self.query, self.key, self.value)])
+        w_qkv, b_qkv = concat_linears([(self._weight(m, 0), self._col_bias(m))
+                                       for m in (self.query, self.key, self.value)])
         qkv = linear(x, w_qkv, b_qkv, compute_dtype=dt)
-        q, k, v = SplitFusedHeads.apply(qkv, 3, cfg.n_head)
-        if nvit:
-            att = attention_qknorm(
-                q, k, v, sqk_eff(self.sqk, cfg), math.sqrt(cfg.head_dim),
-                use_flash=cfg.flash_attn, bounded_softmax=cfg.bounded_softmax,
-            )
+        q, k, v = SplitFusedHeads.apply(qkv, 3, self._heads())
+        if cfg.use_nvit:
+            s, mode = self._sqk()
+            att = attention_qknorm(q, k, v, s, math.sqrt(cfg.head_dim), use_flash=cfg.flash_attn,
+                                   bounded_softmax=mode)
         else:
             att = attention(q, k, v, 1.0 / math.sqrt(cfg.head_dim), use_flash=cfg.flash_attn)
-        h_att = linear(merge_heads(att), self.att_c_proj.weight, self.att_c_proj.bias, compute_dtype=dt)
-        if nvit:
-            h = slerp_residual(h, h_att, self.attn_alpha, ATTN_ALPHA_INIT_VALUE, cfg.base_scale)
-        else:
-            h = x + h_att
+        return self._row_product(merge_heads(att), self.att_c_proj, dt)
 
-        x = h if nvit else self.rmsnorm_mlp(h)
-        w_fc, b_fc = self.c_fc.weight, self.c_fc.bias
-        if nvit:
+    def attn_output(self, h: torch.Tensor, x: torch.Tensor, y: torch.Tensor, dt) -> torch.Tensor:
+        h_att = self._row_bias(y, self.att_c_proj, dt)
+        if self.cfg.use_nvit:
+            return slerp_residual(h, h_att, self.attn_alpha, ATTN_ALPHA_INIT_VALUE, self.cfg.base_scale)
+        return x + h_att
+
+    def mlp_input(self, h: torch.Tensor) -> torch.Tensor:
+        return h if self.cfg.use_nvit else self.rmsnorm_mlp(h)
+
+    def mlp_partial(self, x: torch.Tensor, dt) -> torch.Tensor:
+        """The gated MLP up to its output projection; under TP on the
+        rank's u|v columns, a partial sum without the bias."""
+        cfg = self.cfg
+        w_fc, b_fc = self._weight(self.c_fc, 0), self._col_bias(self.c_fc)
+        if cfg.use_nvit:
             # weight-side suv fold: suv·(x Wᵀ) ≡ x (suv ⊙ W)ᵀ, so scale the ROWS
             # of the [2H, K] weight in fp32 before the cast (≙ blocks.py:174-186);
             # an int8 weight takes it into its per-output scale, exactly
-            suv = self.suv * ((SUV_INIT_VALUE / SUV_INIT_SCALING) * math.sqrt(cfg.n_embd))
+            suv = self._suv() * ((SUV_INIT_VALUE / SUV_INIT_SCALING) * math.sqrt(cfg.n_embd))
             if isinstance(w_fc, QuantParams):
                 w_fc = QuantParams(w_fc.wq, w_fc.scale * suv)
             else:
                 w_fc = w_fc * suv[:, None]
             b_fc = b_fc * suv if b_fc is not None else None
         x_mlp = gated_linear(x, w_fc, b_fc, compute_dtype=dt, use_kernel=use_mlp_kernel(cfg))
-        h_mlp = linear(x_mlp, self.mlp_c_proj.weight, self.mlp_c_proj.bias, compute_dtype=dt)
-        if nvit:
-            return slerp_residual(h, h_mlp, self.mlp_alpha, MLP_ALPHA_INIT_VALUE, cfg.base_scale)
+        return self._row_product(x_mlp, self.mlp_c_proj, dt)
+
+    def mlp_output(self, h: torch.Tensor, x: torch.Tensor, y: torch.Tensor, dt) -> torch.Tensor:
+        h_mlp = self._row_bias(y, self.mlp_c_proj, dt)
+        if self.cfg.use_nvit:
+            return slerp_residual(h, h_mlp, self.mlp_alpha, MLP_ALPHA_INIT_VALUE, self.cfg.base_scale)
         return x + h_mlp
+
+    def _enter(self, x: torch.Tensor, dt) -> torch.Tensor:
+        """f in front of a column-parallel region, on the compute-dtype input."""
+        if self.tp is None:
+            return x
+        return enter_model(x.to(dt) if dt is not None else x, self.tp)
+
+    def _reduce(self, y: torch.Tensor) -> torch.Tensor:
+        """g after a row-parallel product: the partial sums summed over the model axis."""
+        return y if self.tp is None else reduce_model(y, self.tp)
+
+    def forward(self, h: torch.Tensor, *, compute_dtype: torch.dtype | None = None) -> torch.Tensor:
+        """Block output WITHOUT the outer norm_skip (the ViT loop applies it)."""
+        dt = compute_dtype
+        x = self.attn_input(h)
+        h = self.attn_output(h, x, self._reduce(self.attn_partial(self._enter(x, dt), dt)), dt)
+        x = self.mlp_input(h)
+        return self.mlp_output(h, x, self._reduce(self.mlp_partial(self._enter(x, dt), dt)), dt)
 
 
 class CrossAttentionBlock(nn.Module):

@@ -301,10 +301,13 @@ def num_params(model: nn.Module) -> int:
     return sum(p.numel() for p in model.parameters())
 
 
-def estimate_flops_per_iter(cfg: ViTConfig, n_params: int, fwdbwd_per_iter: int = 1) -> float:
+def estimate_flops_per_iter(cfg: ViTConfig, n_params: int, fwdbwd_per_iter: int = 1,
+                            model_parallel: int = 1) -> float:
     """FLOPs per image and iteration (≙ vit.py:estimate_flops_per_iter):
-    flops/token = 6N + 12·L·H·Q·T, flops/iter = flops/token · T · fwdbwd."""
-    L_, H, Q = cfg.n_layer, cfg.n_head, cfg.head_dim
+    flops/token = 6N + 12·L·H·Q·T, flops/iter = flops/token · T · fwdbwd.
+    A tensor-parallel rank's: N its share of the parameters (the caller's),
+    H/M heads."""
+    L_, H, Q = cfg.n_layer, cfg.n_head // model_parallel, cfg.head_dim
     T = cfg.n_patches
     flops_per_token = 6 * n_params + 12 * L_ * H * Q * T
     return float(flops_per_token * T * fwdbwd_per_iter)

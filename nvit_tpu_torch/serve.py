@@ -29,8 +29,10 @@ built from code; a pinned batch pads every request up to it and caps it),
 and excludes ``--int8`` (baked in at export), ``--export``,
 ``--data-parallel`` and ``--model-parallel``.  ``--data-parallel`` serves
 one replica per visible card (``Predictor(data_parallel=True)``; each
-batch split over them); ``--model-parallel`` > 1 is refused, naming slice
-16.  In a program::
+batch split over them); ``--model-parallel N`` shards the trunk over N
+cards (``Predictor(model_parallel=N)``: every card a shard, or with
+``--data-parallel`` a data × model grid; on the CPU N shards on the one
+CPU), and ``/stats`` reports the layout.  In a program::
 
     service = InferenceService(Predictor.from_config(cfg, device="cuda"), max_batch=32)
     service.warmup()
@@ -387,6 +389,11 @@ class InferenceService:
         labels, top_probs = topk_from_probs(probs, top_k)
         return {"labels": labels.tolist(), "probs": top_probs.tolist()}
 
+    def layout(self) -> dict:
+        """The predictor's data replicas × model shards (one of each for an
+        AOT artifact)."""
+        return getattr(self.predictor, "layout", {"data": 1, "model": 1})
+
     def close(self) -> None:
         """Stop the batching worker (if any); in-flight requests complete."""
         if self._batcher is not None:
@@ -410,7 +417,7 @@ def make_handler(service: InferenceService):
             if self.path == "/healthz":
                 self._reply(200, {"status": "ok", "model": service.model_info})
             elif self.path == "/stats":
-                self._reply(200, service.stats.snapshot())
+                self._reply(200, {**service.stats.snapshot(), "layout": service.layout()})
             else:
                 self._reply(404, {"error": f"unknown path {self.path}"})
 
@@ -478,22 +485,21 @@ def main(argv=None) -> None:
                          "--int8 is baked in at export time")
     ap.add_argument("--data-parallel", action="store_true",
                     help="one replica per visible card, each batch split over them")
-    ap.add_argument("--model-parallel", type=int, default=1, help="not ported beyond 1 (slice 16)")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="shard the trunk over this many cards (tensor parallelism); with "
+                         "--data-parallel a data x model grid of the visible cards")
     args = ap.parse_args(argv)
     if args.aot and (args.int8 or args.data_parallel or args.export or args.model_parallel > 1):
         # export-time properties of the artifact: accepting them here would serve something else
         ap.error("--aot is exclusive: bake --int8 into the artifact via "
                  "ckpt.aot, and --export/--data-parallel/--model-parallel do not apply")
-    if args.model_parallel != 1:
-        ap.error("--model-parallel > 1 (tensor parallelism) is not ported yet: slice 16 "
-                 "(ROADMAP.md, 'multi-GPU')")
 
     def build():
         if args.aot:
             return load_aot(args.checkpoint, args.name, device=args.device)
         load = Predictor.from_export if args.export else Predictor.from_checkpoint
         return load(args.checkpoint, args.name, device=args.device, data_parallel=args.data_parallel,
-                    quantize="int8" if args.int8 else None)
+                    model_parallel=args.model_parallel, quantize="int8" if args.int8 else None)
 
     service = InferenceService(build(), max_batch=args.max_batch,
                                batch_window_ms=args.batch_window_ms, builder=build)

@@ -22,6 +22,13 @@ dither depends on (count, leaf, mu/nu) alone: a resumed run rounds as a
 straight one.  The uint32 arithmetic runs on int64 tensors masked to 32
 bits, its products wrapping mod 2⁶⁴.  The store is plain PyTorch, about 60
 launches a parameter under "hash" (~380 under "threefry").
+
+On a rank that holds pieces of the trunk (``layout``, a sharded
+``parallel/mesh.Mesh``) the update runs on the pieces: the clip scale
+comes from the caller's norm of the WHOLE gradient (``grad_norm``), the
+same on every rank; a piece's dither reads its elements' indices in the
+whole JAX leaf, so the ranks round as one card does; the renorm's axis is
+whole in every piece.
 """
 
 from __future__ import annotations
@@ -152,13 +159,17 @@ def fused_adamw_renorm_update(
     state: FusedAdamWState,
     *,
     renorm: bool,
+    grad_norm: torch.Tensor | None = None,
+    layout=None,
 ) -> FusedAdamWState:
-    """Apply one fused AdamW(+renorm) step to ``params`` in place → the new state."""
+    """Apply one fused AdamW(+renorm) step to ``params`` in place → the new
+    state.  ``grad_norm``: the clip's norm, default the norm of ``grads``;
+    ``layout``: the ``Mesh`` whose pieces ``params`` are."""
     b1, b2, wd = opt_cfg.beta1, opt_cfg.beta2, opt_cfg.weight_decay
     device = next(iter(params.values())).device
     gscale = None
     if opt_cfg.grad_clip:
-        gnorm = global_norm(grads.values())
+        gnorm = global_norm(grads.values()) if grad_norm is None else grad_norm
         clip = torch.tensor(opt_cfg.grad_clip, dtype=torch.float32, device=device)
         gscale = torch.where(gnorm < clip, torch.ones_like(clip), clip / gnorm)
 
@@ -176,7 +187,11 @@ def fused_adamw_renorm_update(
         m, v = state.mu[name], state.nu[name]
         store = None
         if m.dtype == torch.bfloat16:
-            store = sr_store(opt_cfg, state.count, name, jax_index(name, p.shape, local_patch, device))
+            if layout is None:
+                index = jax_index(name, p.shape, local_patch, device)
+            else:
+                index = layout.take(name, jax_index(name, layout.full_shape(name, p.shape), local_patch, device))
+            store = sr_store(opt_cfg, state.count, name, index)
             m, v, g = m.float(), v.float(), g.float()
         m = b1 * m + (1.0 - b1) * g
         v = b2 * v + (1.0 - b2) * torch.square(g)

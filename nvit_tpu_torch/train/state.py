@@ -8,6 +8,10 @@ package splits from the same seed (``ckpt.tree.run_key``).  The two
 frameworks draw different weights from the same seed, so a fresh state's
 weights are the port's own; the tests carry JAX weights across with
 ``ckpt.convert.state_dict_from_jax``.
+
+Under tensor parallelism or FSDP a state is built whole, from the one seed
+or the checkpoint, then cut to the rank's pieces (``shard_state_``), so
+every layout starts from the weights of one card.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import torch
 from nvit_tpu_torch.ckpt.tree import run_key
 from nvit_tpu_torch.configs import Config
 from nvit_tpu_torch.models.vit import ViT
+from nvit_tpu_torch.parallel.mesh import Mesh
 from nvit_tpu_torch.train.optim import FusedAdamWState, init_fused_adamw
 
 
@@ -44,6 +49,21 @@ def create_train_state(cfg: Config, seed: int | None = None, *, device: torch.de
     rng = torch.Generator()
     rng.manual_seed(seed + 1)
     return TrainState(model=model, opt_state=opt_state, step=0, generator=rng, rng=run_key(seed))
+
+
+@torch.no_grad()
+def shard_state_(state: TrainState, mesh: Mesh) -> TrainState:
+    """Keep this rank's pieces of ``state`` (``mesh``'s layout): each trunk
+    block's shard (``Block.shard_``: the model axis, and the data axis under
+    FSDP) and its parameters' moments alike."""
+    if not mesh.sharded:
+        return state
+    for blk in state.model.transformer["h"]:
+        blk.shard_(mesh.model, mesh.data if mesh.fsdp else None)
+    for moments in (state.opt_state.mu, state.opt_state.nu):
+        for name in moments:
+            moments[name] = mesh.take(name, moments[name])
+    return state
 
 
 def compute_dtype_of(cfg: Config) -> torch.dtype | None:

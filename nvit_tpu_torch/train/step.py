@@ -10,15 +10,24 @@ Hebbian deltas, each computed against the pre-step nodes, are summed and not
 divided.  No GradScaler: bf16 needs no loss scaling.  PyTorch runs eagerly,
 so there is no jit.
 
-Across processes (``group``, ``parallel/mesh.py``; ≙ the step under a mesh,
-where XLA's partitioner reduces over the ``data`` axis) each rank runs the
-step on its rows of the global batch, and after the micro-batch loop, in
-this order: the gradients and the loss terms are averaged over ranks (one
-all-reduce; every loss term is a per-sample mean), the Hebbian deltas are
-SUMMED over ranks (a delta is a batch sum: under SPMD it is the global
-batch's).  Clip, AdamW, renorm, the norms and the histograms then read the
-same reduced gradients on every rank, so the parameters stay bit-equal
-without another broadcast.
+Across processes (``group``: a data-parallel group or a data × model
+``Mesh``, ``parallel/mesh.py``; ≙ the step under a mesh, where XLA's
+partitioner inserts the collectives) each data rank runs the step on its
+rows of the global batch, the ranks of a model group on the same rows with
+the trunk's shards (their collectives run inside the forward and backward,
+``parallel/tensor.py``).  After the micro-batch loop, in this order: the
+gradients of ``sqk`` and ``suv``, which each model rank reads at its own
+heads and rows, are SUMMED over the model axis; the gradients and the loss
+terms are averaged over the data axis (one all-reduce; every loss term is a
+per-sample mean), but for the FSDP pieces, whose gradients the backward's
+reduce-scatter summed already and which are divided by the data ranks; the
+Hebbian deltas are SUMMED over the data axis only (a delta is a batch sum:
+under SPMD it is the global batch's, and the model ranks of a group compute
+the same one).  The clip's norm and the logged norms are those of the whole
+tensors (``Mesh.global_norms``); clip, AdamW and the renorm run on each
+rank's pieces, whose renorm axis is whole; the histograms count the whole
+tensors' downsample.  So every rank holds the same replicated parameters,
+bit for bit, without another broadcast.
 
 ``log_histograms`` gives the step variant that adds every gradient's
 ``gradhist/<JAX path>`` counts (``obs/grad_hist.py``, ≙ :162-165), which
@@ -41,7 +50,7 @@ from nvit_tpu_torch.models.schedules import cosine_lr
 from nvit_tpu_torch.models.vit import total_loss
 from nvit_tpu_torch.obs.grad_hist import tree_grad_histograms
 from nvit_tpu_torch.obs.profiling import check_finite
-from nvit_tpu_torch.parallel.mesh import DataGroup, all_reduce_mean_, all_reduce_sum_
+from nvit_tpu_torch.parallel.mesh import DataGroup, Mesh, all_reduce_mean_, all_reduce_sum_, data_mesh, shard_dim
 from nvit_tpu_torch.train.optim import fused_adamw_renorm_update, global_norm
 from nvit_tpu_torch.train.state import TrainState, compute_dtype_of
 
@@ -74,16 +83,33 @@ def make_loss_fn(cfg: Config):
 
 # the maps the Hebbian deltas go to: SOM info key → the map's nodes parameter
 HEBBIAN_DELTAS = {"local_delta": "local_kohonen.nodes", "global_delta": "global_kohonen.nodes"}
+# replicated vectors each model rank reads at its heads' / u|v rows' slice
+_READ_BY_SLICE = (".sqk", ".suv")
+
+
+def reduce_gradients_(mesh: Mesh, grads: dict[str, torch.Tensor], terms: dict[str, torch.Tensor],
+                      deltas: dict[str, torch.Tensor]) -> None:
+    """The step's reductions across ranks, in place (see the module docstring)."""
+    if mesh.model.world > 1:
+        all_reduce_sum_(mesh.model, [g for n, g in grads.items()
+                                     if n.startswith("transformer.h.") and n.endswith(_READ_BY_SLICE)])
+    if mesh.data.world > 1:
+        pieces = [n for n in grads if mesh.fsdp and shard_dim(n) is not None]
+        for n in pieces:  # the reduce-scatter's sums
+            grads[n].div_(mesh.data.world)
+        all_reduce_mean_(mesh.data, [*(g for n, g in grads.items() if n not in pieces), *terms.values()])
+        all_reduce_sum_(mesh.data, deltas.values())
 
 
 def make_train_step(
     cfg: Config, log_norms: bool | None = None, log_histograms: bool = False,
-    group: DataGroup | None = None,
+    group: DataGroup | Mesh | None = None,
 ) -> Callable[[TrainState, torch.Tensor, torch.Tensor], tuple[TrainState, Metrics]]:
     """(state, images, labels) → (state, metrics); the state is updated in place.
 
     ``images``: [B, C, H, W] fp32 (normalized); ``labels``: [B] int — with
-    ``group``, this rank's rows of the global batch.  With
+    ``group``, this data rank's rows of the global batch; with a sharded
+    ``Mesh``, the state holds this rank's shards (``train.state.shard_state_``).  With
     gradient_accumulation_steps = k, B must divide by k.  ``log_norms``
     overrides ``cfg.system.log_gpu_stats`` for the grad/param norm metrics;
     ``log_histograms`` adds the gradients' ``gradhist/*`` int32[64] counts.
@@ -92,6 +118,14 @@ def make_train_step(
     accum = max(1, cfg.training.gradient_accumulation_steps)
     want_norms = cfg.system.log_gpu_stats if log_norms is None else log_norms
     loss_fn = make_loss_fn(cfg)
+    mesh = data_mesh(group) if isinstance(group, DataGroup) else group
+    sharded = mesh is not None and mesh.sharded
+
+    def norms(groups) -> list[torch.Tensor]:
+        """The whole tensors' norm of each group of (name, tensor)."""
+        if sharded:
+            return mesh.global_norms(groups)
+        return [global_norm(t for _, t in named) for named in groups]
 
     def train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor):
         b = images.shape[0]
@@ -116,15 +150,16 @@ def make_train_step(
         if accum > 1:
             grads = {n: g / accum for n, g in grads.items()}
             terms = {k: v / accum for k, v in terms.items()}
-        if group is not None and group.world > 1:
-            all_reduce_mean_(group, [*grads.values(), *terms.values()])
-            all_reduce_sum_(group, deltas.values())
+        if mesh is not None:
+            reduce_gradients_(mesh, grads, terms, deltas)
 
         if cfg.system.debug_nans:
             check_finite([("the loss", terms["total_loss"]), *((f"the gradient of {n}", g)
                                                                 for n, g in grads.items())])
         state.opt_state = fused_adamw_renorm_update(
-            cfg.optimizer, params, grads, state.opt_state, renorm=cfg.model.use_nvit)
+            cfg.optimizer, params, grads, state.opt_state, renorm=cfg.model.use_nvit,
+            grad_norm=norms([grads.items()])[0] if sharded and cfg.optimizer.grad_clip else None,
+            layout=mesh if sharded else None)
         with torch.no_grad():
             for key, delta in deltas.items():
                 nodes = params[HEBBIAN_DELTAS[key]]
@@ -134,18 +169,17 @@ def make_train_step(
         metrics: Metrics = dict(terms)
         metrics["learning_rate"] = cosine_lr(cfg.optimizer, state.step)
         if log_histograms:
-            metrics.update(tree_grad_histograms(grads, cfg.model.local_patch_size))
+            metrics.update(tree_grad_histograms(grads, cfg.model.local_patch_size,
+                                                layout=mesh if sharded else None))
         if want_norms:
             with torch.no_grad():
-                metrics["grad_norm"] = global_norm(grads.values())
-                metrics["param_norm"] = global_norm(params.values())
+                groups = {"grad_norm": grads.items(), "param_norm": params.items()}
                 for i in range(cfg.model.n_layer):
                     prefix = f"transformer.h.{i}."
-                    metrics[f"blocks.{i}_grad_norm"] = global_norm(
-                        g for n, g in grads.items() if n.startswith(prefix))
+                    groups[f"blocks.{i}_grad_norm"] = [(n, g) for n, g in grads.items() if n.startswith(prefix)]
                 for part, prefix in GRAD_NORM_GROUPS.items():
-                    metrics[f"{part}_grad_norm"] = global_norm(
-                        g for n, g in grads.items() if n.startswith(prefix))
+                    groups[f"{part}_grad_norm"] = [(n, g) for n, g in grads.items() if n.startswith(prefix)]
+                metrics.update(zip(groups, norms(list(groups.values()))))
         for p in params.values():
             p.grad = None
         state.step += 1

@@ -52,31 +52,41 @@ that feeds an eval (never the one that reaches ``max_iters``) and logs its
 gradient or updated parameter.  ``optimizer.moments_dtype="bfloat16"``
 keeps the moments in bf16 with stochastic rounding (``train/optim.py``).
 
-Data parallelism (≙ trainer.py:90-178, :335-354, :415-435, :458-465,
-:590-605, :850-1000): one process per card, as the reference's
-``torchrun`` ran it.  Under a launcher's environment (``WORLD_SIZE`` > 1)
-the Trainer forms the group itself (``parallel/mesh.py``: NCCL on cards,
-gloo on the CPU), or joins one the caller formed (``group=``), and
-destroys a group it formed in ``cleanup()``.  Rank 0's parameters and
-moments are broadcast once; each rank loads its shard of every global
-batch (``batch_size / world`` rows, ``drop_last``), augments its rows of
-the global batch's draw, and the step averages the gradients and SUMS the
-Hebbian deltas over ranks.  Rank 0 alone writes: the metrics sinks, wandb
-and its artifacts, the checkpoints, the ``finished`` sentinel, ``stat`` and
+Data parallelism, tensor parallelism and FSDP (≙ trainer.py:90-178,
+:335-354, :415-435, :458-465, :590-605, :850-1000): one process per card,
+as the reference's ``torchrun`` ran it.  Under a launcher's environment
+(``WORLD_SIZE`` > 1) the Trainer forms the group itself
+(``parallel/mesh.py``: NCCL on cards, gloo on the CPU), or joins one the
+caller formed (``group=``), and destroys a group it formed in
+``cleanup()``.  The world is a data × model grid (``make_mesh``:
+``system.model_parallel`` = M consecutive ranks a model group), with
+``system.fsdp`` over several data ranks the trunk's shards cut again over
+the data axis.  Rank 0's parameters and moments are broadcast once, whole;
+then each rank keeps its pieces (``train.state.shard_state_``): the model
+is built and initialised whole, from the one seed, so every layout starts
+from one card's weights.  Each data rank loads its shard of every global
+batch (``batch_size / data ranks`` rows, ``drop_last``) and augments its
+rows of the global batch's draw; the ranks of a model group read the same
+rows with the same draws.  The step (``train/step.py``) reduces over the
+axes.  Rank 0 alone writes: the metrics sinks, wandb and its artifacts,
+the checkpoints (gathered from every rank's pieces by every rank,
+``ckpt/checkpoint.py``), the ``finished`` sentinel, ``stat`` and
 ``training.log``, and the CIFAR download (the others wait for it).  Every
-rank restores the same checkpoint onto its own device.  Validation and
-``estimate_loss`` average their metrics over ranks, so early stopping
-agrees everywhere.  The time limit is rank 0's verdict, broadcast every
-``log_interval`` iterations, and a signal is deferred to the step boundary,
-where the ranks agree to stop together (one host all-reduce a step), so no
-rank waits in a collective another has left.  Several cards visible to one
-process with ``use_ddp`` on and no group is a ``ValueError``: the Trainer
-never trains on one card of several quietly.
+rank restores the whole checkpoint onto its own device and keeps its
+pieces, so a run resumes on any layout.  Validation and ``estimate_loss``
+average their metrics over ranks, so early stopping agrees everywhere.
+The time limit is rank 0's verdict, broadcast every ``log_interval``
+iterations, and a signal is deferred to the step boundary, where the ranks
+agree to stop together (one host all-reduce a step), so no rank waits in a
+collective another has left.  MFU stays a card's: a TP rank counts its
+share of the trunk's products.  Several cards visible to one process with
+``use_ddp`` on and no group is a ``ValueError``: the Trainer never trains
+on one card of several quietly; so is ``model_parallel > 1`` on one rank
+(≙ trainer.py:99-104), and ``fsdp`` on one rank warns, as the JAX trainer
+does.
 
 Refused at construction with ``NotImplementedError``, never skipped
-silently: ``system.model_parallel > 1`` and ``system.fsdp`` across ranks
-(slice 16, ROADMAP.md 'multi-GPU'; ``fsdp`` on one rank warns, as the JAX
-trainer does), and orbax checkpoints (on ROADMAP.md's do-not-port list).
+silently: orbax checkpoints (on ROADMAP.md's do-not-port list).
 ``jit``, ``compile``,
 ``compilation_cache_dir``, ``clear_cache`` and ``backend`` are TPU/XLA
 settings with no PyTorch counterpart and are ignored, and so is
@@ -117,6 +127,7 @@ from nvit_tpu_torch.obs.metrics import (
     write_stat_line,
 )
 from nvit_tpu_torch.obs.profiling import start_trace, stop_trace
+from nvit_tpu_torch.ckpt.checkpoint import gathered_leaves
 from nvit_tpu_torch.parallel.mesh import (
     DataGroup,
     any_flag,
@@ -126,9 +137,11 @@ from nvit_tpu_torch.parallel.mesh import (
     init_data_parallel,
     join_default_group,
     launcher_world,
+    make_mesh,
     mean_metrics,
+    shard_dim,
 )
-from nvit_tpu_torch.train.state import create_train_state
+from nvit_tpu_torch.train.state import create_train_state, shard_state_
 from nvit_tpu_torch.train.step import make_eval_step, make_train_step
 
 # dense bf16 tensor-core peak by device name (NVIDIA's data sheets); MFU is
@@ -148,9 +161,9 @@ def device_peak_flops(device: torch.device) -> float | None:
 
 
 def check_ported(cfg: Config, world: int = 1) -> None:
-    """Raise ``NotImplementedError`` for the settings the port refuses:
-    tensor parallelism and FSDP across ``world`` ranks (slice 16) and orbax
-    checkpoints (not to be ported)."""
+    """Raise ``NotImplementedError`` for the one setting the port refuses,
+    orbax checkpoints (not to be ported), and ``ValueError`` for a layout
+    ``world`` ranks cannot hold."""
     t, s, d = cfg.training, cfg.system, cfg.data
     if t.init_from not in ("scratch", "resume", "wandb"):
         raise ValueError(f"Invalid init_from value: {t.init_from}")
@@ -161,14 +174,10 @@ def check_ported(cfg: Config, world: int = 1) -> None:
     if d.checkpoint_backend != "npz":
         raise ValueError(f"checkpoint_backend must be 'npz' or 'orbax', got {d.checkpoint_backend!r}")
     cfg.model.validate()  # before anything is made on the device
-    if s.model_parallel > 1:
-        raise NotImplementedError(
-            f"system.model_parallel={s.model_parallel} (tensor parallelism) is not ported yet: "
-            "slice 16 (ROADMAP.md, 'multi-GPU', item 10b)")
-    if s.fsdp and world > 1:
-        raise NotImplementedError(
-            f"system.fsdp across {world} ranks (ZeRO-3) is not ported yet: slice 16 (ROADMAP.md, "
-            "'multi-GPU', item 10b)")
+    if s.model_parallel < 1:
+        raise ValueError(f"model_parallel must be >= 1, got {s.model_parallel}")
+    if world > 1 and world % s.model_parallel:  # ≙ make_mesh; one rank: the Trainer's ValueError
+        raise ValueError(f"{world} devices not divisible by model_parallel={s.model_parallel}")
 
 
 def data_group(cfg: Config, device: torch.device, group: DataGroup | None) -> tuple[DataGroup | None, bool]:
@@ -212,6 +221,14 @@ class Trainer:
         self.rank = 0 if self.group is None else self.group.rank
         self.is_master = self.rank == 0
         self.device = device if self.group is None else self.group.device
+        mp = cfg.system.model_parallel
+        if self.group is None and mp > 1:  # ≙ trainer.py:99-104
+            raise ValueError(f"model_parallel={mp} requires a multi-device mesh ({self.world} device(s) "
+                             f"visible, use_ddp={cfg.system.use_ddp})")
+        # the data × model grid (≙ make_mesh); None on one rank
+        self.mesh = None if self.group is None else make_mesh(self.group, mp, cfg.system.fsdp)
+        self.data_world = 1 if self.mesh is None else self.mesh.data.world
+        self.data_rank = 0 if self.mesh is None else self.mesh.data.rank
         if self.device.type == "cuda":
             # cuBLAS bf16 GEMMs (the dW/dx products) reduce split-K partials in
             # fp32, as the JAX step's preferred_element_type=f32 products do
@@ -220,11 +237,11 @@ class Trainer:
         batch = cfg.training.batch_size
         if batch % accum:
             raise ValueError(f"batch_size={batch} not divisible by gradient_accumulation_steps={accum}")
-        if batch % self.world:  # ≙ trainer.py:153-178
-            raise ValueError(f"batch_size={batch} not divisible by the {self.world} ranks")
-        if (batch // accum) % self.world:
+        if batch % self.data_world:  # ≙ trainer.py:153-178
+            raise ValueError(f"batch_size={batch} not divisible by the {self.data_world} ranks")
+        if (batch // accum) % self.data_world:
             raise ValueError(f"per-micro-batch size {batch // accum} (batch_size/grad_accum) not "
-                             f"divisible by the {self.world} ranks")
+                             f"divisible by the {self.data_world} ranks")
         self.out_dir = Path(cfg.data.out_dir)
         self.out_dir.mkdir(parents=True, exist_ok=True)
         self.logger = setup_logging(self.out_dir, level=cfg.system.log_level,
@@ -232,6 +249,8 @@ class Trainer:
         if self.group is not None:
             self.logger.info("data parallel: rank %d of %d on %s (pid %d)", self.rank, self.world,
                              self.device, os.getpid())
+            self.logger.info("mesh: data=%d, model=%d%s", self.data_world, mp,
+                             ", fsdp" if self.mesh.fsdp else "")
         if cfg.system.fsdp and self.world == 1:
             # ≙ trainer.py:105-113: not an error, but no memory is saved
             self.logger.warning("system.fsdp requested on one rank: training with fully replicated "
@@ -255,11 +274,15 @@ class Trainer:
         else:
             self._resume(cfg.data.checkpoint_dir, cfg.data.checkpoint_file.removesuffix(".npz"))
             cfg = self.cfg
+        n = num_params(self.state.model)
+        n_sharded = sum(p.numel() for name, p in self.state.model.named_parameters()
+                        if shard_dim(name) is not None)
         if self.world > 1:  # ≙ shard_params: DDP's initial parameter broadcast
             st = self.state
             broadcast_(self.group, [*st.model.state_dict().values(), *st.opt_state.mu.values(),
                                     *st.opt_state.nu.values()])
-        grp = self.group
+            shard_state_(st, self.mesh)  # then each rank keeps its pieces
+        grp = self.mesh
         self._train_step = make_train_step(cfg, log_norms=False, group=grp)
         self._train_step_norms = (make_train_step(cfg, log_norms=True, group=grp)
                                   if cfg.system.log_gpu_stats else self._train_step)
@@ -279,7 +302,6 @@ class Trainer:
         self._skip_final_save = False  # the state may be half-updated: no final save
         self._prev_handlers: dict | None = None  # train()'s signal handlers are installed
 
-        n = num_params(self.state.model)
         self.logger.info("Model: %.2fM params | nvit=%s kohonen=%s | %s on %s", n / 1e6,
                          cfg.model.use_nvit, cfg.model.use_kohonen, cfg.data.dataset, self.device)
         if cfg.system.quick_validation and cfg.training.full_eval_interval == 0:
@@ -292,8 +314,10 @@ class Trainer:
                 "set training.full_eval_interval=N to run the full val pass "
                 "every Nth eval", cfg.system.quick_validation_size,
             )
-        # MFU is a card's: this rank's rows of the global batch
-        self._flops_per_iter = estimate_flops_per_iter(cfg.model, n) * (batch // self.world)
+        # MFU is a card's: this rank's rows of the global batch, and under TP
+        # its share of the trunk's products
+        self._flops_per_iter = estimate_flops_per_iter(
+            cfg.model, n - n_sharded + n_sharded // mp, model_parallel=mp) * (batch // self.data_world)
 
     def _resume(self, ckpt_dir: str, name: str) -> None:
         """init_from="resume" (≙ trainer.py:189-224): the MODEL config comes
@@ -346,13 +370,15 @@ class Trainer:
 
     def _epoch_iter(self, ds, *, epoch: int, shuffle: bool, drop_last: bool = True, start_batch: int = 0):
         """The epoch's batches on the device, ``data.prefetch`` in flight
-        (≙ trainer.py:_epoch_iter): this rank's strided shard of each global
-        batch; ragged batches would desync the ranks, so several drop them."""
+        (≙ trainer.py:_epoch_iter): this data rank's strided shard of each
+        global batch, the same for every rank of its model group; ragged
+        batches would desync the ranks, so several drop them."""
         d = self.cfg.data
-        it = make_epoch_iterator(ds, batch_size=self.cfg.training.batch_size // self.world, epoch=epoch,
+        it = make_epoch_iterator(ds, batch_size=self.cfg.training.batch_size // self.data_world, epoch=epoch,
                                  seed=self.cfg.training.seed, shuffle=shuffle,
                                  drop_last=drop_last or self.world > 1, num_workers=d.num_workers,
-                                 shard_index=self.rank, shard_count=self.world, start_batch=start_batch)
+                                 shard_index=self.data_rank, shard_count=self.data_world,
+                                 start_batch=start_batch)
         return device_prefetch(it, self.device, size=d.prefetch)
 
     def _timed(self, batches):
@@ -372,14 +398,14 @@ class Trainer:
         """AutoAugment (train) and normalize; a train batch's draw is keyed
         by the run key and ``step`` (default ``iter_num``), as the JAX
         trainer keys it by ``fold_in(state.rng, step)``, and drawn for the
-        global batch, of which this rank's images are rows
+        global batch, of which this data rank's images are rows
         ``rank·b … (rank+1)·b − 1``."""
         aug = self.cfg.data.augmentation
         gen = step_generator(self.state.rng, self.iter_num if step is None else step) if train else None
         b = imgs_u8.shape[0]
         return preprocess(imgs_u8, gen, train=train, dataset=self.cfg.data.dataset,
-                          auto_augment=aug.enabled and aug.auto_augment, row0=self.rank * b,
-                          batch=self.world * b)
+                          auto_augment=aug.enabled and aug.auto_augment, row0=self.data_rank * b,
+                          batch=self.data_world * b)
 
     def _sqk_drift_metrics(self) -> dict[str, float]:
         """Largest effective sqk and the bounded-softmax shift it implies
@@ -434,7 +460,7 @@ class Trainer:
             self._cleaned = False  # re-arm cleanup for this launch
             self._install_signal_handlers()
             self._load_data()
-            if len(self.trainset) // self.world < tc.batch_size // self.world:
+            if len(self.trainset) // self.data_world < tc.batch_size // self.data_world:
                 raise ValueError(f"training dataset ({len(self.trainset)} examples) is smaller "
                                  f"than one batch ({tc.batch_size})")
             if self.is_master:
@@ -511,7 +537,9 @@ class Trainer:
                 self.logger.info("Reached max_iters (%d); writing finished sentinel", tc.max_iters)
                 self.mark_training_finished(f"max_iters:{tc.max_iters}")
         except Exception as e:
-            if self._in_step:  # raised inside the in-place update: the state may be torn
+            # raised inside the in-place update: the state may be torn; with
+            # shards the other ranks may not join the final save's gather
+            if self._in_step or (self.mesh is not None and self.mesh.sharded):
                 self._skip_final_save = True
             self.logger.error("training failed: %s", e)
             raise
@@ -612,7 +640,8 @@ class Trainer:
             collected.append(torch.stack([m[k].float() for k, _ in keep]))
         if not collected:
             raise ValueError(f"validation produced zero batches: val set has {len(self.valset)} "
-                             f"examples for batch {cfg.training.batch_size} over {self.world} rank(s)")
+                             f"examples for batch {cfg.training.batch_size} over {self.data_world} "
+                             "data rank(s)")
         means = torch.stack(collected).cpu().double().mean(dim=0).tolist()
         metrics = {f"val/{name}": v for (_, name), v in zip(keep, means)}
         return metrics if self.world == 1 else mean_metrics(self.group, metrics)
@@ -688,29 +717,40 @@ class Trainer:
                 "early_stopping_counter": self.early_stopping_counter,
                 "eval_count": self._eval_count}
 
-    def _save_one(self, name: str, metrics: dict[str, Any] | None) -> None:
+    def _save_one(self, name: str, metrics: dict[str, Any] | None, leaves) -> None:
         self._pending_saves.append(save_checkpoint_async(
-            self.out_dir, name, self.state, self.cfg, metrics, self._trainer_meta()))
+            self.out_dir, name, self.state, self.cfg, metrics, self._trainer_meta(), leaves))
+
+    def _gathered(self):
+        """Every rank: under TP/FSDP the whole state's leaves, gathered to
+        rank 0 (None elsewhere, and without shards: the save copies)."""
+        if self.mesh is None or not self.mesh.sharded:
+            return None
+        return gathered_leaves(self.state, self.mesh)
 
     def save(self, metrics: dict[str, Any] | None = None) -> None:
         """checkpoint_latest (and checkpoint_<iter> with save_numbered_checkpoints):
-        the host copy now, the file writes on a thread; rank 0 only."""
+        the host copy now, the file writes on a thread; rank 0 writes (every
+        rank gathers under TP/FSDP)."""
+        t0 = time.time()
+        leaves = self._gathered()
         if not self.is_master:
             return
         self._join_pending_saves()
-        t0 = time.time()
         metrics = metrics or self.last_metrics
-        self._save_one("checkpoint_latest", metrics)
+        self._save_one("checkpoint_latest", metrics, leaves)
         if self.cfg.training.save_numbered_checkpoints:
-            self._save_one(f"checkpoint_{self.iter_num:07d}", metrics)
+            self._save_one(f"checkpoint_{self.iter_num:07d}", metrics, leaves)
         self.logger.info("Checkpoint snapshot time: %.2f sec", time.time() - t0)
 
     def save_best(self, metrics: dict[str, Any]) -> None:
-        """checkpoint_best, from evaluate() on a strict improvement only; rank 0 only."""
+        """checkpoint_best, from evaluate() on a strict improvement only;
+        rank 0 writes (every rank gathers under TP/FSDP)."""
+        leaves = self._gathered()
         if not self.is_master:
             return
         self._join_pending_saves()
-        self._save_one("checkpoint_best", metrics)
+        self._save_one("checkpoint_best", metrics, leaves)
         self._maybe_log_artifact()
 
     def _maybe_log_artifact(self) -> None:

@@ -10,8 +10,8 @@ CPU.
   packaged defaults and ``NVIT_MULTIHOST=1`` refused by name;
 * ``python -m nvit_tpu_torch.ckpt.export``'s ``main`` in this process, bf16
   and int8;
-* the serve CLI: ``--data-parallel`` and ``--model-parallel 2`` refused by
-  name, and one run in a subprocess on the CPU (an export served over HTTP,
+* the serve CLI: ``--data-parallel`` and ``--model-parallel 2`` serving,
+  and one run in a subprocess on the CPU (an export served over HTTP,
   SIGHUP reload, SIGTERM drain); ``--int8`` and ``--aot`` are
   tests/test_torch_serving_modes.py;
 * ``InferenceService.warmup(all_buckets=True)`` runs the JAX package's

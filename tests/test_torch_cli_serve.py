@@ -1,5 +1,5 @@
 """The port's serve CLI on the CPU (a companion of tests/test_torch_cli.py):
-``--model-parallel 2`` refused by name, ``--data-parallel`` serving,
+``--model-parallel 2`` and ``--data-parallel`` serving,
 ``InferenceService.warmup(all_buckets=True)`` on the JAX package's bucket
 ladder, and one run in a subprocess (an export served over HTTP, SIGHUP
 reload, SIGTERM drain)."""
@@ -28,39 +28,56 @@ from tests.torch_cli_cases import REPO, clean_environment, tiny_checkpoint  # no
 torch.set_num_threads(1)
 
 
+class NoServer:  # stands in for the HTTP server: serve_forever returns at once
+    def __init__(self, address, handler):
+        self.server_address = address
+
+    def serve_forever(self):
+        pass
+
+    def server_close(self):
+        pass
+
+
+def served_predictor(monkeypatch, argv: list) -> Predictor:
+    """``serve_main(argv)`` with the HTTP server stood in for → the served Predictor."""
+    import nvit_tpu_torch.serve as serve
+
+    services = []
+    make_handler = serve.make_handler
+    monkeypatch.setattr(serve, "make_handler", lambda service: services.append(service) or make_handler(service))
+    monkeypatch.setattr(serve, "ThreadingHTTPServer", NoServer)
+    monkeypatch.setattr(serve.signal, "signal", lambda *args: None)  # this process keeps its handlers
+    serve_main(argv)
+    (service,) = services
+    return service.predictor
+
+
 @pytest.mark.parametrize("flags,item", [(["--model-parallel", "2"], "slice 16")])
-def test_serve_cli_refuses_unported_options(capsys, flags, item):
-    with pytest.raises(SystemExit) as exit_info:
-        serve_main(flags)
-    assert exit_info.value.code == 2 and item in capsys.readouterr().err
+def test_serve_cli_refuses_unported_options(tmp_path, monkeypatch, capsys, flags, item):
+    """Slice 16 ported ``--model-parallel``: it serves
+    ``Predictor(model_parallel=2)`` (on the CPU two shards on the one CPU)
+    with the one-device probabilities (rtol 1e-5: the row-parallel sums
+    reassociate), and ``/stats`` names the layout."""
+    tiny_checkpoint(tmp_path)
+    pred = served_predictor(monkeypatch, ["--checkpoint", str(tmp_path), *flags, "--device", "cpu", "--port", "0"])
+    assert "drained; exiting" in capsys.readouterr().out
+    assert pred.layout == {"data": 1, "model": 2, "devices": ["cpu", "cpu"]}
+    images = np.random.default_rng(3).integers(0, 256, (3, 3, 16, 16), dtype=np.uint8)
+    want = Predictor.from_checkpoint(tmp_path, device="cpu", compute_dtype=None).predict_probs(images)
+    got = Predictor.from_checkpoint(tmp_path, device="cpu", compute_dtype=None,
+                                    model_parallel=2).predict_probs(images)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
+    assert InferenceService(pred).layout() == pred.layout
 
 
 def test_serve_cli_data_parallel_serves_the_replicated_predictor(tmp_path, monkeypatch, capsys):
     """``--data-parallel`` builds ``Predictor(data_parallel=True)`` (on the
     CPU one replica: the CPU is one device) and serves its probabilities."""
-    import nvit_tpu_torch.serve as serve
-
     tiny_checkpoint(tmp_path)
-    services = []
-    make_handler = serve.make_handler
-    monkeypatch.setattr(serve, "make_handler", lambda service: services.append(service) or make_handler(service))
-
-    class NoServer:  # stands in for the HTTP server: serve_forever returns at once
-        def __init__(self, address, handler):
-            self.server_address = address
-
-        def serve_forever(self):
-            pass
-
-        def server_close(self):
-            pass
-
-    monkeypatch.setattr(serve, "ThreadingHTTPServer", NoServer)
-    monkeypatch.setattr(serve.signal, "signal", lambda *args: None)  # this process keeps its handlers
-    serve_main(["--checkpoint", str(tmp_path), "--data-parallel", "--device", "cpu", "--port", "0"])
+    pred = served_predictor(monkeypatch, ["--checkpoint", str(tmp_path), "--data-parallel", "--device", "cpu",
+                                          "--port", "0"])
     assert "drained; exiting" in capsys.readouterr().out
-    (service,) = services
-    pred = service.predictor
     assert pred.batch_multiple == 1 and pred.devices == [torch.device("cpu")]
     images = np.random.default_rng(3).integers(0, 256, (3, 3, 16, 16), dtype=np.uint8)
     want = Predictor.from_checkpoint(tmp_path, device="cpu").predict_probs(images)

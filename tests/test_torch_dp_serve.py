@@ -6,10 +6,13 @@ on the CPU:
   against the one-replica probabilities (rtol 1e-6), float and int8;
 * ``serve --data-parallel`` answering ``/predict`` in a subprocess, and a
   two-replica ``InferenceService`` over HTTP counting its padded rows;
-* what stays refused: ``model_parallel > 1`` and ``fsdp`` across ranks
-  (``NotImplementedError`` naming slice 16; ``fsdp`` on one rank warns),
-  several cards with ``use_ddp`` and no group, ``use_ddp`` off under a
-  launcher, and global batches the ranks do not divide (``ValueError``).
+* the multi-rank settings: ``model_parallel > 1`` on one rank is JAX's
+  ``ValueError``, ``fsdp`` across two ranks passes ``check_ported`` (and on
+  one rank warns); refused: several cards with ``use_ddp`` and no group,
+  ``use_ddp`` off under a launcher, and global batches the data ranks do
+  not divide (``ValueError``);
+* ``Predictor(data_parallel=True, model_parallel=2)`` lays a data × model
+  grid over its devices.
 """
 
 import http.client
@@ -68,8 +71,11 @@ def test_data_parallel_predictor_devices_and_refusals(tmp_path):
     assert pred.devices == [torch.device("cpu")] and pred.batch_multiple == 1  # the CPU is one device
     with pytest.raises(ValueError, match="data_parallel=True"):
         Predictor.from_checkpoint(tmp_path, device="cpu", devices=CPUS)
-    with pytest.raises(NotImplementedError, match="slice 16"):
-        Predictor.from_checkpoint(tmp_path, device="cpu", data_parallel=True, model_parallel=2)
+    with pytest.raises(ValueError, match="data_parallel=True or model_parallel > 1"):
+        Predictor.from_checkpoint(tmp_path, device="cpu", devices=CPUS)
+    grid = Predictor.from_checkpoint(tmp_path, device="cpu", data_parallel=True, model_parallel=2,
+                                     devices=CPUS * 2)
+    assert grid.layout == {"data": 2, "model": 2, "devices": ["cpu"] * 4} and grid.batch_multiple == 2
 
 
 def post(port: int, batch: np.ndarray) -> dict:
@@ -141,11 +147,17 @@ def test_serve_cli_data_parallel_in_a_subprocess(tmp_path):
 
 @pytest.mark.parametrize("system,world", [(dict(model_parallel=2), 1), (dict(fsdp=True), 2)])
 def test_tensor_parallelism_and_fsdp_across_ranks_stay_refused(tmp_path, system, world):
+    """Slice 16 ported both: ``model_parallel=2`` on one rank raises JAX's
+    ``ValueError`` (≙ trainer.py:99-104), and ``fsdp`` across two ranks
+    passes ``check_ported``; a world the model axis does not divide raises
+    (≙ make_mesh)."""
     cfg = trainer_config(tmp_path, system=system)
-    with pytest.raises(NotImplementedError, match="slice 16"):
-        check_ported(cfg, world)
-    with pytest.raises(NotImplementedError, match="slice 16"):
-        Trainer(cfg, device="cpu", group=DataGroup(0, world, torch.device("cpu"), None))
+    check_ported(cfg, world)
+    if world == 1:
+        with pytest.raises(ValueError, match="model_parallel=2 requires a multi-device mesh"):
+            Trainer(cfg, device="cpu")
+        with pytest.raises(ValueError, match="3 devices not divisible by model_parallel=2"):
+            check_ported(cfg, 3)
 
 
 def test_fsdp_on_one_rank_warns(tmp_path, caplog):
