@@ -38,6 +38,7 @@ from nvit_tpu_torch.ckpt.export import load_export
 from nvit_tpu_torch.configs import Config, ViTConfig
 from nvit_tpu_torch.data.augment import normalize
 from nvit_tpu_torch.models.vit import ViT
+from nvit_tpu_torch.obs.profiling import span
 from nvit_tpu_torch.ops.quant import int8_skeleton, quantize_vit
 from nvit_tpu_torch.parallel.mesh import Axis
 from nvit_tpu_torch.parallel.tensor import LocalShards
@@ -163,21 +164,29 @@ class Predictor:
         return cls(sd, model_cfg, **kw)
 
     def predict_probs(self, images_u8) -> np.ndarray:
-        """[B, C, H, W] uint8 → softmax probabilities [B, num_classes] (fp32)."""
-        # np.array copies: request bodies arrive as read-only buffers
-        x = np.array(images_u8, dtype=np.uint8)
-        b, m = x.shape[0], self.batch_multiple
-        if b % m:  # ≙ infer.py:147-150: pad to a replica multiple
-            x = np.concatenate([x, np.zeros((m - b % m, *x.shape[1:]), np.uint8)])
+        """[B, C, H, W] uint8 → softmax probabilities [B, num_classes] (fp32).
+
+        Host spans (``obs/profiling.span``): ``nvit.infer.upload`` (the copy,
+        the replica padding, each replica's rows to its device, normalized)
+        and ``nvit.infer.readback`` (the gather, where the host waits for
+        the device)."""
         outs = []
         with torch.inference_mode():
-            for model, dev, chunk in zip(self.replicas, self._inputs, np.split(x, m)):
+            with span("nvit.infer.upload"):
+                # np.array copies: request bodies arrive as read-only buffers
+                x = np.array(images_u8, dtype=np.uint8)
+                b, m = x.shape[0], self.batch_multiple
+                if b % m:  # ≙ infer.py:147-150: pad to a replica multiple
+                    x = np.concatenate([x, np.zeros((m - b % m, *x.shape[1:]), np.uint8)])
+                inputs = [normalize(torch.from_numpy(chunk).to(dev))
+                          for dev, chunk in zip(self._inputs, np.split(x, m))]
+            for model, dev, x_dev in zip(self.replicas, self._inputs, inputs):
                 # launched on every replica before any is gathered
                 with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
-                    logits = model(normalize(torch.from_numpy(chunk).to(dev)),
-                                   compute_dtype=self.compute_dtype)
+                    logits = model(x_dev, compute_dtype=self.compute_dtype)
                     outs.append(torch.softmax(logits.float(), dim=-1))
-            probs = torch.cat([o.cpu() for o in outs])
+            with span("nvit.infer.readback"):
+                probs = torch.cat([o.cpu() for o in outs])
         return probs[:b].numpy()
 
     def predict(self, images_u8, top_k: int = 1) -> tuple[np.ndarray, np.ndarray]:

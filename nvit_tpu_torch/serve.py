@@ -4,8 +4,10 @@ Same contract as the JAX package's server:
 
 * ``GET  /healthz``  → ``{"status": "ok", "model": {...}}``
 * ``GET  /stats``    → request/image/error counts, latency percentiles over
-  the last 1024 requests, device-program count, realized coalescing factor
-  and padding overhead (ServingStats)
+  the last 1024 requests, device-program count, realized coalescing factor,
+  padding overhead, the mean queue wait per request and the host's
+  milliseconds per forward in the batch window, the batch's concat and
+  pad, and the forward (ServingStats)
 * ``POST /predict``  → raw uint8 bytes of one [C, H, W] image
   (``Content-Type: application/octet-stream``), or JSON
   ``{"images": [[[...]]], "top_k": 5}`` with one [C,H,W] image or a
@@ -53,6 +55,7 @@ import numpy as np
 
 from nvit_tpu_torch.ckpt.aot import load_aot
 from nvit_tpu_torch.infer import Predictor, topk_from_probs
+from nvit_tpu_torch.obs.profiling import span
 
 logger = logging.getLogger("nvit_tpu_torch.serve")
 
@@ -79,11 +82,16 @@ class DynamicBatcher:
     A worker thread drains the queue: the first waiting request opens a
     window of ``window_s``; everything that arrives before it closes (up to
     ``max_batch`` rows in all) rides the same forward.  ``run`` takes the
-    coalesced [B, C, H, W] batch and returns [B, num_classes] probabilities.
+    riders' [b, C, H, W] arrays and returns [Σb, num_classes] probabilities.
+    ``record(riders, queue_wait_s, window_s)``, if given, gets each batch's
+    rider count, their summed wait from ``submit`` to being taken, and the
+    seconds from the worker's first sight of a rider to the window's close
+    (the ``nvit.serve.window`` span).
     """
 
-    def __init__(self, run, max_batch: int, window_s: float):
+    def __init__(self, run, max_batch: int, window_s: float, record=None):
         self._run = run
+        self._record = record
         self.max_batch = max_batch
         self.window_s = window_s
         self._cv = threading.Condition()
@@ -94,7 +102,8 @@ class DynamicBatcher:
 
     def submit(self, images: np.ndarray) -> np.ndarray:
         """Block until this request's rows come back: → probs [b, classes]."""
-        item = {"images": images, "event": threading.Event(), "result": None, "error": None}
+        item = {"images": images, "event": threading.Event(), "result": None, "error": None,
+                "t": time.perf_counter()}
         with self._cv:
             if self._closed:
                 raise RuntimeError("batcher is closed")
@@ -118,26 +127,26 @@ class DynamicBatcher:
                     self._cv.wait()
                 if not self._queue:  # closed and drained
                     return
-                deadline = time.monotonic() + self.window_s
-                while not self._closed:
-                    total = sum(i["images"].shape[0] for i in self._queue)
-                    remaining = deadline - time.monotonic()
-                    if total >= self.max_batch or remaining <= 0:
-                        break
-                    self._cv.wait(timeout=remaining)
-                batch: list[dict] = [self._queue.pop(0)]
-                taken = batch[0]["images"].shape[0]
-                while self._queue and taken + self._queue[0]["images"].shape[0] <= self.max_batch:
-                    item = self._queue.pop(0)
-                    batch.append(item)
-                    taken += item["images"].shape[0]
+                t_open = time.perf_counter()
+                with span("nvit.serve.window"):
+                    deadline = time.monotonic() + self.window_s
+                    while not self._closed:
+                        total = sum(i["images"].shape[0] for i in self._queue)
+                        remaining = deadline - time.monotonic()
+                        if total >= self.max_batch or remaining <= 0:
+                            break
+                        self._cv.wait(timeout=remaining)
+                    batch: list[dict] = [self._queue.pop(0)]
+                    taken = batch[0]["images"].shape[0]
+                    while self._queue and taken + self._queue[0]["images"].shape[0] <= self.max_batch:
+                        item = self._queue.pop(0)
+                        batch.append(item)
+                        taken += item["images"].shape[0]
+                t_taken = time.perf_counter()
             try:
-                imgs = (
-                    np.concatenate([i["images"] for i in batch], axis=0)
-                    if len(batch) > 1
-                    else batch[0]["images"]
-                )
-                probs = self._run(imgs)
+                if self._record is not None:
+                    self._record(len(batch), sum(t_taken - i["t"] for i in batch), t_taken - t_open)
+                probs = self._run([i["images"] for i in batch])
                 ofs = 0
                 for item in batch:
                     n = item["images"].shape[0]
@@ -157,7 +166,12 @@ class ServingStats:
 
     ``images / device_programs`` is the realized coalescing factor, and
     ``padded_images`` vs ``images`` the device work the power-of-two padding
-    adds."""
+    adds.  The host's seconds at the batcher's boundaries, summed:
+    ``queue_wait_s`` over requests (``submit`` → taken into a batch; 0
+    without a batch window), and over forwards ``window_s`` (the batch
+    window), ``batch_s`` (concat and pad) and ``forward_s`` (the
+    Predictor's call under the lock), each timed where the span of the
+    same name runs (``nvit.serve.window``, ``.batch``, ``.forward``)."""
 
     WINDOW = 1024
 
@@ -170,6 +184,11 @@ class ServingStats:
         self.device_images = 0
         self.padded_images = 0
         self.reloads = 0
+        self.queued = 0  # requests taken from the batcher's queue
+        self.queue_wait_s = 0.0
+        self.window_s = 0.0
+        self.batch_s = 0.0
+        self.forward_s = 0.0
         self._lat_ms: list[float] = []
 
     def record_request(self, rows: int, latency_ms: float) -> None:
@@ -188,11 +207,19 @@ class ServingStats:
         with self._lock:
             self.reloads += 1
 
-    def record_program(self, rows: int, padded_rows: int) -> None:
+    def record_window(self, riders: int, queue_wait_s: float, window_s: float) -> None:
+        with self._lock:
+            self.queued += riders
+            self.queue_wait_s += queue_wait_s
+            self.window_s += window_s
+
+    def record_program(self, rows: int, padded_rows: int, batch_s: float, forward_s: float) -> None:
         with self._lock:
             self.device_programs += 1
             self.device_images += rows
             self.padded_images += padded_rows
+            self.batch_s += batch_s
+            self.forward_s += forward_s
 
     def snapshot(self) -> dict:
         with self._lock:
@@ -211,6 +238,13 @@ class ServingStats:
                 "padding_overhead": (
                     round(self.padded_images / self.device_images - 1.0, 3)
                     if self.device_images
+                    else None
+                ),
+                "queue_wait_ms": round(1e3 * self.queue_wait_s / self.queued, 3) if self.queued else None,
+                "host_ms_per_forward": (
+                    {k: round(1e3 * v / self.device_programs, 3)
+                     for k, v in (("window", self.window_s), ("batch", self.batch_s), ("forward", self.forward_s))}
+                    if self.device_programs
                     else None
                 ),
             }
@@ -251,7 +285,7 @@ class InferenceService:
         self._lock = threading.Lock()
         self.stats = ServingStats()
         self._batcher = (
-            DynamicBatcher(self._padded_probs, self.max_batch, batch_window_ms / 1e3)
+            DynamicBatcher(self._padded_probs, self.max_batch, batch_window_ms / 1e3, self._record_window)
             if batch_window_ms > 0
             else None
         )
@@ -268,7 +302,7 @@ class InferenceService:
         self.predict(np.zeros((1, *self._shape), dtype=np.uint8))
         for b in self._bucket_sizes():
             if b > 1:
-                self._padded_probs(np.zeros((b, *self._shape), dtype=np.uint8))
+                self._padded_probs([np.zeros((b, *self._shape), dtype=np.uint8)])
         # /stats describes live traffic only
         self.stats = ServingStats()
 
@@ -351,22 +385,32 @@ class InferenceService:
             raise ValueError(f"top_k must be an int in 1..{self.model_info['num_classes']}, got {top_k!r}")
         return np.rint(images).astype(np.uint8), top_k
 
-    def _padded_probs(self, images: np.ndarray) -> np.ndarray:
-        """One device forward over a (possibly coalesced) batch, padded to the
-        artifact's pinned batch or the next power of two, serialized through
-        the lock → probs for exactly the input rows."""
-        b = images.shape[0]
-        if self._pinned:
-            pad = np.zeros((self._pinned - b, *images.shape[1:]), dtype=images.dtype)
-            images = np.concatenate([images, pad], axis=0) if b < self._pinned else images
-        else:
-            images, _ = _pad_batch(images, self.max_batch)
-        with self._lock:
+    def _record_window(self, riders: int, queue_wait_s: float, window_s: float) -> None:
+        self.stats.record_window(riders, queue_wait_s, window_s)
+
+    def _padded_probs(self, parts: list[np.ndarray]) -> np.ndarray:
+        """One device forward over the requests' [b, C, H, W] ``parts``
+        (several when coalesced), concatenated and padded to the artifact's
+        pinned batch or the next power of two, serialized through the lock
+        → probs for exactly the input rows."""
+        t0 = time.perf_counter()
+        with span("nvit.serve.batch"):
+            images = np.concatenate(parts, axis=0) if len(parts) > 1 else parts[0]
+            b = images.shape[0]
+            if self._pinned:
+                pad = np.zeros((self._pinned - b, *images.shape[1:]), dtype=images.dtype)
+                images = np.concatenate([images, pad], axis=0) if b < self._pinned else images
+            else:
+                images, _ = _pad_batch(images, self.max_batch)
+        batch_s = time.perf_counter() - t0
+        with self._lock, span("nvit.serve.forward"):
+            t1 = time.perf_counter()
             probs = np.asarray(self.predictor.predict_probs(images))
+            forward_s = time.perf_counter() - t1
         # the Predictor pads again to a replica multiple under --data-parallel
         # (infer.py::predict_probs): those rows are device work too
         m = getattr(self.predictor, "batch_multiple", 1)
-        self.stats.record_program(b, -(-images.shape[0] // m) * m)
+        self.stats.record_program(b, -(-images.shape[0] // m) * m, batch_s, forward_s)
         return probs[:b]
 
     def predict(self, images: np.ndarray, top_k: int = 1) -> dict:
@@ -380,7 +424,7 @@ class InferenceService:
             probs = (
                 self._batcher.submit(images)
                 if self._batcher is not None
-                else self._padded_probs(images)
+                else self._padded_probs([images])
             )
         except Exception:
             self.stats.record_error()

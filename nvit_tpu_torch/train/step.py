@@ -36,6 +36,13 @@ the Trainer runs only on the step that feeds an eval.  Under
 first non-finite tensor: the loss and the gradients before the update,
 the updated parameters after it (``obs/profiling.check_finite``, one host
 sync each).
+
+The step's phases are host spans (``obs/profiling.span``) for a profiler
+to record: ``nvit.step.forward`` and ``nvit.step.backward`` once per
+micro-batch, ``nvit.step.reduce`` around the exchange (with a group only)
+and ``nvit.step.update`` around clip + AdamW + renorm.  The backward's
+kernels are launched from autograd's device thread, inside the time of the
+main thread's backward span.
 """
 
 from __future__ import annotations
@@ -49,7 +56,7 @@ from nvit_tpu_torch.models.losses import topk_accuracy
 from nvit_tpu_torch.models.schedules import cosine_lr
 from nvit_tpu_torch.models.vit import total_loss
 from nvit_tpu_torch.obs.grad_hist import tree_grad_histograms
-from nvit_tpu_torch.obs.profiling import check_finite
+from nvit_tpu_torch.obs.profiling import check_finite, span
 from nvit_tpu_torch.parallel.mesh import DataGroup, Mesh, all_reduce_mean_, all_reduce_sum_, data_mesh, shard_dim
 from nvit_tpu_torch.train.optim import fused_adamw_renorm_update, global_norm
 from nvit_tpu_torch.train.state import TrainState, compute_dtype_of
@@ -138,8 +145,10 @@ def make_train_step(
         terms = deltas = None
         for i in range(accum):
             sl = slice(i * micro, (i + 1) * micro)
-            loss, (t, som_info) = loss_fn(state.model, images[sl], labels[sl], state.step)
-            loss.backward()
+            with span("nvit.step.forward"):
+                loss, (t, som_info) = loss_fn(state.model, images[sl], labels[sl], state.step)
+            with span("nvit.step.backward"):
+                loss.backward()
             t = {k: v.detach() for k, v in t.items()}
             terms = t if terms is None else {k: terms[k] + t[k] for k in terms}
             d = {k: som_info[k] for k in HEBBIAN_DELTAS if k in som_info}
@@ -151,15 +160,17 @@ def make_train_step(
             grads = {n: g / accum for n, g in grads.items()}
             terms = {k: v / accum for k, v in terms.items()}
         if mesh is not None:
-            reduce_gradients_(mesh, grads, terms, deltas)
+            with span("nvit.step.reduce"):
+                reduce_gradients_(mesh, grads, terms, deltas)
 
         if cfg.system.debug_nans:
             check_finite([("the loss", terms["total_loss"]), *((f"the gradient of {n}", g)
                                                                 for n, g in grads.items())])
-        state.opt_state = fused_adamw_renorm_update(
-            cfg.optimizer, params, grads, state.opt_state, renorm=cfg.model.use_nvit,
-            grad_norm=norms([grads.items()])[0] if sharded and cfg.optimizer.grad_clip else None,
-            layout=mesh if sharded else None)
+        with span("nvit.step.update"):
+            state.opt_state = fused_adamw_renorm_update(
+                cfg.optimizer, params, grads, state.opt_state, renorm=cfg.model.use_nvit,
+                grad_norm=norms([grads.items()])[0] if sharded and cfg.optimizer.grad_clip else None,
+                layout=mesh if sharded else None)
         with torch.no_grad():
             for key, delta in deltas.items():
                 nodes = params[HEBBIAN_DELTAS[key]]

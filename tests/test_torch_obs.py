@@ -11,8 +11,12 @@ sanitizer) against the JAX package on the CPU.
 * one histogram step of a tiny model gives JAX's key set, each tensor's
   counts within 1% (L1) of JAX's;
 * the Trainer logs histograms only at the evals fed by a histogram step;
-* ``profile_steps=2`` writes a trace under ``out_dir/profile``, and so does
-  ``maybe_trace`` when enabled;
+* ``profile_steps=2`` writes a trace under ``out_dir/profile`` that holds
+  the step's ``nvit.step.*`` spans, and ``maybe_trace`` writes one when
+  enabled;
+* a step with two micro-batches under a profiler records the forward and
+  backward spans twice and the update once, on the host only; a profiler
+  of all threads records the serving batcher's spans on its thread;
 * ``debug_nans`` raises ``FloatingPointError`` on a step with a NaN input,
   as the JAX step does under ``jax_debug_nans``.
 """
@@ -35,12 +39,14 @@ from nvit_tpu_torch.data.augment import normalize
 from nvit_tpu_torch.models.vit import ViT
 from nvit_tpu_torch.obs import grad_hist
 from nvit_tpu_torch.obs.profiling import maybe_trace
+from nvit_tpu_torch.serve import InferenceService
 from nvit_tpu_torch.train.optim import init_fused_adamw
-from nvit_tpu_torch.train.state import TrainState
+from nvit_tpu_torch.train.state import TrainState, create_train_state
 from nvit_tpu_torch.train.step import make_train_step
 from nvit_tpu_torch.train.trainer import Trainer
 from tests.torch_ckpt_cases import trainer_config
 from tests.torch_parity import kohonen_fields, paired_configs, random_jax_params
+from tests.torch_serving import _FakePredictor
 
 torch.set_num_threads(1)
 
@@ -163,11 +169,50 @@ def test_profile_steps_write_a_trace(tmp_path):
     assert len(traces) == 1
     events = json.loads(traces[0].read_text())["traceEvents"]
     assert any("aten::" in e.get("name", "") for e in events)
+    names = {e.get("name") for e in events}
+    assert {"nvit.step.forward", "nvit.step.backward", "nvit.step.update"} <= names
     # the context manager: a trace when enabled, nothing otherwise
     for enabled in (False, True):
         with maybe_trace(tmp_path / str(enabled), enabled, torch.device("cpu")):
             torch.ones(4).add_(1)
         assert (tmp_path / str(enabled) / "profile").exists() == enabled
+
+
+def test_step_spans_per_micro_batch(tmp_path):
+    cfg = trainer_config(tmp_path, training=dict(gradient_accumulation_steps=2))
+    step = make_train_step(cfg)
+    state = create_train_state(cfg, device="cpu")
+    imgs = torch.zeros(4, 3, 16, 16)
+    labels = torch.arange(4) % 10
+    step(state, imgs, labels)  # the first call's one-off work outside the profile
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        step(state, imgs, labels)
+    spans = [e for e in prof.events() if e.name.startswith("nvit.")]
+    assert sorted(e.name for e in spans) == ["nvit.step.backward"] * 2 + ["nvit.step.forward"] * 2 + [
+        "nvit.step.update"]
+    # host ranges of FUNCTION scope (0), as an autograd.Function's, not USER_SCOPE
+    assert all(e.device_type == torch.autograd.DeviceType.CPU and e.scope == 0 for e in spans)
+    forward, backward, update = (sorted((e for e in spans if e.name == n), key=lambda e: e.time_range.start)
+                                 for n in ("nvit.step.forward", "nvit.step.backward", "nvit.step.update"))
+    assert (forward[0].time_range.end <= backward[0].time_range.start <= forward[1].time_range.start
+            <= backward[1].time_range.start <= update[0].time_range.start)
+    assert any(e.name.startswith("aten::") and update[0].time_range.start <= e.time_range.start
+               <= update[0].time_range.end for e in prof.events())
+
+
+def test_serving_spans_on_the_batcher_thread():
+    service = InferenceService(_FakePredictor(), max_batch=8, batch_window_ms=20)
+    config = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+    try:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU],
+                                    experimental_config=config) as prof:
+            service.predict(np.zeros((1, 3, 4, 4), np.uint8))
+    finally:
+        service.close()
+    spans = {e.name: e for e in prof.events() if e.name.startswith("nvit.")}
+    assert set(spans) == {"nvit.serve.window", "nvit.serve.batch", "nvit.serve.forward"}
+    assert spans["nvit.serve.window"].time_range.elapsed_us() >= 20e3
+    assert len({e.thread for e in spans.values()}) == 1 and all(e.scope == 0 for e in spans.values())
 
 
 def test_debug_nans_raises_where_jax_raises(tmp_path):

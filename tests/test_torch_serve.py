@@ -1,14 +1,16 @@
 """The serving layer's HTTP contract on a stand-in predictor (a companion of
 tests/test_torch_slice.py): power-of-two padding, bad requests answered 400,
-a device failure 500, and dynamic batching coalescing concurrent requests."""
+a device failure 500, dynamic batching coalescing concurrent requests, and
+the batcher's host timings (``ServingStats``, ``GET /stats``)."""
 
 import json
 import threading
+import time
 
 import numpy as np
 import pytest
 
-from nvit_tpu_torch.serve import InferenceService, _pad_batch
+from nvit_tpu_torch.serve import DynamicBatcher, InferenceService, _pad_batch
 from tests.torch_serving import _FakePredictor, _request, serving
 
 
@@ -73,3 +75,45 @@ def test_device_failure_is_500_and_dynamic_batching_coalesces():
     for i in range(4):
         assert results[i] == direct.predict(imgs[i], top_k=2)
     assert sum(fake.batches) >= 4 and len(fake.batches) < 4  # coalesced
+
+
+class _SlowPredictor(_FakePredictor):
+    def predict_probs(self, images):
+        time.sleep(0.02)
+        return super().predict_probs(images)
+
+
+def test_batcher_times_its_queue_window_batch_and_forward():
+    window = 0.05
+    service = InferenceService(_SlowPredictor(), max_batch=8, batch_window_ms=window * 1e3)
+    service.warmup()  # a fresh ServingStats after it
+    assert service.stats.snapshot()["queue_wait_ms"] is None
+    try:
+        service.predict(np.zeros((1, 3, 4, 4), np.uint8))  # one row under max_batch: taken when the window closes
+    finally:
+        service.close()
+    st = service.stats
+    assert st.queued == 1 and st.device_programs == 1
+    assert st.queue_wait_s >= window and st.window_s >= window
+    assert st.forward_s >= 0.02 and 0 < st.batch_s < st.forward_s
+    snap = st.snapshot()
+    assert snap["queue_wait_ms"] >= 1e3 * window
+    assert set(snap["host_ms_per_forward"]) == {"window", "batch", "forward"}
+    assert snap["host_ms_per_forward"]["window"] >= 1e3 * window and snap["host_ms_per_forward"]["forward"] >= 20
+
+    # the batcher alone: two riders of one window, their waits summed
+    calls = []
+    batcher = DynamicBatcher(lambda parts: np.concatenate(parts), 8, 4 * window,
+                             record=lambda *a: calls.append(a))
+    out = [None, None]
+    threads = [threading.Thread(target=lambda i=i: out.__setitem__(i, batcher.submit(np.full((i + 1, 2), i))))
+               for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=10)
+    batcher.close()
+    assert not any(t.is_alive() for t in threads)
+    assert [o.tolist() for o in out] == [[[0, 0]], [[1, 1], [1, 1]]]
+    (riders, wait_s, window_s), = calls
+    assert riders == 2 and window_s >= 4 * window and wait_s >= 4 * window
