@@ -9,13 +9,14 @@ Phases (any failure raises, and the script exits non-zero with no result):
 
 1. device   — card name and power limit, torch/CUDA versions; requires
                compute capability 9.0; TF32 off for matmuls and cuDNN;
-2. build    — compiles the seven kernel sources from nvit_tpu_torch/csrc/,
+2. build    — compiles the eight kernel sources from nvit_tpu_torch/csrc/,
                one nvcc per source, all started together, and prints ptxas's
                registers, shared memory and spills of the wgmma kernels —
                the attention kernels (K1/K2/K5, K7/K8/K9 and K10, on the
                tile loops of attn_fwd.cuh and attn_bwd.cuh), their projection
                prologues and the gated-MLP GEMMs (K3/K4/K6, on the main loop
-               of gated_gemm.cuh) — which must not spill;
+               of gated_gemm.cuh) — and of every instantiation of the
+               residual kernels (residual.cu), which must not spill;
 3. kernels  — K1/K2 (QK-norm flash attention fwd/bwd, on contiguous and
                strided QKV inputs; K2 and K5's backward bit-equal across two
                calls), their projection prologue, K3/K4 (gated MLP
@@ -31,6 +32,12 @@ Phases (any failure raises, and the script exits non-zero with no result):
                twin at the bench's shape, nsplit 2 and 7, and a ragged one,
                and bit-deterministic; the prologue against its twin (one bf16
                rounding of q̂_s, k̂, k̂_s; lse exact; Δ to fp32 order);
+   then the residual kernels (the SLERP and norm_skip, forward and
+               backward) at [32, 784, 768] in bf16, fp32 and fp32-on-bf16
+               against their twins, output and every gradient (dα and d_skip
+               included), bit-equal across two calls, each timed alone by
+               CUDA events behind a sleep against its byte bound and beside
+               its twin;
 4. bench    — ``python -m nvit_tpu_torch.scripts.attn_bwd_split_bench``'s
                main() on the card (its 3e-2 asserts against K5's backward
                are not caught): K10's counter must rise by exactly the
@@ -47,7 +54,9 @@ biases from a seed:
                ThreadingHTTPServer: /predict at batches 1, 4 and 32, /healthz,
                /stats; the path's attention forward (K1 and its prologue, or
                K7) and gated MLP (K3, or K6 with a bias) must launch 13 times
-               per forward and no other kernel; served probabilities against the same weights
+               per forward and no other kernel, and the residual kernels' forwards
+               25 (nViT: 2 a block + the cross-attention) and 12 (norm_skip)
+               times a forward; served probabilities against the same weights
                on the plain path (flash_attn=False, gated MLP off);
 7. times    — each of the path's kernels against its twin, the unfused chain
                and (attention) PyTorch's fused SDPA, by CUDA events (K9 at
@@ -58,7 +67,8 @@ biases from a seed:
                and plain paths;
 8. train    — training at batch 32, bf16: one make_train_step step launches
                the path's four kernels (K1–K4, K7/K8/K3/K4, or K1/K2/K6) 13
-               times each (nViT's prologue 26 times, the baseline's 13) and
+               times each (nViT's prologue 26 times, the baseline's 13; the
+               residual kernels 25 and 12 times each way) and
                no other; loss
                and per-group gradients (biases and suv included) against the
                plain path on the same weights and batch; ten steps on one batch lower the loss; step time,
@@ -300,14 +310,20 @@ KERNELS = {  # summary name → (source, TPU kernel it replaces)
     # K8/K9's q·scale and k·scale fold (and K8's Δ), out of their tile walks
     "flash_project": ("nvit_tpu_torch/csrc/qknorm_project.cu", "nvit_tpu/ops/flash_attention.py:214"),
 }
-# the wgmma kernels whose ptxas report the build phase prints and holds to 0
-# bytes of spill (mangled-name substrings)
+# the residual updates' kernels (csrc/residual.cu, ops/residual.py: counter
+# name → wrapper).  They replace no TPU kernel: the JAX package computes the
+# updates in jnp under custom VJPs (nvit_tpu/core/residual.py)
+RESIDUAL = {"residual_slerp_fwd": "slerp_fwd", "residual_slerp_bwd": "slerp_bwd",
+            "residual_norm_skip_fwd": "norm_skip_fwd", "residual_norm_skip_bwd": "norm_skip_bwd"}
+# the kernels whose ptxas report the build phase prints and holds to 0 bytes
+# of spill (mangled-name substrings): the wgmma kernels and every
+# instantiation of the residual kernels, which hold a row in registers
 NO_SPILL = ("qknorm_attn_fwd_kernel", "qknorm_attn_bwd_dkv_kernel", "qknorm_attn_bwd_dq_kernel",
             "qknorm_attn_bwd_subtiled_kernel", "qknorm_attn_bwd_subtiled_dq_kernel",
             "qknorm_project_kernel", "flash_attn_fwd_kernel", "flash_attn_bwd_dkv_kernel",
             "flash_attn_bwd_dq_kernel", "flash_project_kernel", "gated_mlp_fwd_kernel",
-            "gated_mlp_bwd_kernel")
-SOURCES = sorted({Path(src).stem for src, _ in KERNELS.values()})
+            "gated_mlp_bwd_kernel", *RESIDUAL, "residual_colsum")
+SOURCES = sorted({Path(src).stem for src, _ in KERNELS.values()} | {"residual"})
 # the kernels each path's serving forward and training step launch, 13 times
 # each (12 blocks + the shared cross-attention) for every time they are
 # listed; every other kernel never.  "qknorm_attn_fwd_auto" counts the "auto"
@@ -448,8 +464,34 @@ def check_launches(launches: dict, expected: dict, what: str) -> None:
 
 
 def reset_counts() -> None:
+    from nvit_tpu_torch.ops import residual
+
     for fn, attr in launch_counts().values():
         setattr(fn, attr, 0)
+    for fn in RESIDUAL.values():
+        getattr(residual, fn).launches = 0
+
+
+def residual_counts() -> dict:
+    from nvit_tpu_torch.ops import residual
+
+    return {name: getattr(residual, fn).launches for name, fn in RESIDUAL.items()}
+
+
+def check_residual_launches(m, what: str, forwards: int, backwards: int, got: dict | None = None) -> dict:
+    """The residual kernels launched as ``forwards`` forwards and
+    ``backwards`` backwards of model ``m`` launch them, since the counts were
+    reset: the SLERP twice a block and once a cross-attention pass with nViT
+    (25 a pass at nViT-B/16, 27 with the Kohonen SOM), norm_skip once a block
+    in both modes → the counts (``got``: a snapshot of ``residual_counts()``,
+    else the counts now)."""
+    slerp = 2 * m.n_layer + n_passes(m) - m.n_layer if m.use_nvit else 0
+    want = {"residual_slerp_fwd": slerp * forwards, "residual_slerp_bwd": slerp * backwards,
+            "residual_norm_skip_fwd": m.n_layer * forwards, "residual_norm_skip_bwd": m.n_layer * backwards}
+    got = residual_counts() if got is None else got
+    print(f"residual launches, {what}: {got}")
+    check(got == want, f"{what}: the residual kernels launched {got}, expected {want}")
+    return got
 
 
 def read_counts() -> dict:
@@ -928,6 +970,85 @@ def bench_phase() -> int:
     return launches["qknorm_attn_bwd_subtiled"]
 
 
+def device_ms(fn, calls: int = 20, iters: int = 5) -> float:
+    """Median device milliseconds a call of ``fn``, its calls queued behind
+    a sleep on the stream so that the host's launch cost stays hidden (a
+    kernel of tens of µs is faster than its wrapper's host work)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(5_000_000)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+# the residual kernels against their twins, relative L2 of the output and of
+# every gradient: the last bits in fp32; with a bf16 input one-ulp flips of
+# a few bf16 roundings, where the norms' sums run in another order
+RESIDUAL_REL_L2 = {torch.bfloat16: 1e-4, torch.float32: 1e-6}
+
+
+def residual_phase() -> dict:
+    """The residual kernels at the flagship cells' shapes, [32, 784, 768]:
+    nViT's bf16 SLERP and norm_skip, the baseline's fp32 norm_skip and its
+    first, an fp32 block output on bf16 patches.  Each against its twin
+    (output, inputs' gradients, dα, d_skip), bit-equal across two calls, and
+    timed alone (``device_ms``) against its byte bound — each row read once
+    and written once — beside the twin → {kernel: {dtype: times}}."""
+    from nvit_tpu_torch.core import residual as R
+    from nvit_tpu_torch.ops import residual as K
+
+    phase("residual: the SLERP and norm_skip kernels against their twins, and their times")
+    shape, c = (32, 784, 768), 0.05 / (1 / 32)
+    times = {name: {} for name in RESIDUAL}
+    for dt_new, dt_h in ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+                         (torch.float32, torch.bfloat16)):
+        g = torch.Generator(device="cpu").manual_seed(21)
+        h = torch.randn(shape, generator=g).to("cuda", dt_h)
+        new = (0.5 * torch.randn(shape, generator=g)).to("cuda", dt_new)
+        gy = torch.randn(shape, generator=g).to("cuda", torch.promote_types(dt_new, dt_h))
+        alpha = (0.05 * torch.randn(shape[-1], generator=g)).cuda()
+        skip = torch.tensor([0.83], device="cuda")
+        tol = RESIDUAL_REL_L2[torch.bfloat16 if torch.bfloat16 in (dt_new, dt_h) else torch.float32]
+        key = "/".join(str(t).removeprefix("torch.") for t in (dt_new, dt_h))
+        calls = [("residual_norm_skip", (new, h, skip), (), K.norm_skip_fwd, K.norm_skip_bwd, R.norm_skip_ref,
+                  R.norm_skip_bwd_ref)]
+        if dt_new == dt_h:
+            calls.append(("residual_slerp", (h, new, alpha), (c,), K.slerp_fwd, K.slerp_bwd,
+                          R.slerp_residual_ref, R.slerp_residual_bwd_ref))
+        for name, args, extra, fwd, bwd, ref, ref_bwd in calls:
+            out, grads = fwd(*args, *extra), bwd(*args, *extra, gy)
+            want, want_grads = ref(*args, *extra), ref_bwd(*args, *extra, gy)
+            again = bwd(*args, *extra, gy)
+            torch.cuda.synchronize()
+            errs = [rel_l2(out, want)] + [rel_l2(a, b) for a, b in zip(grads, want_grads)]
+            print(f"{name} {key}: relative L2 against the twin, output and gradients: "
+                  f"{', '.join(f'{e:.2e}' for e in errs)} (bound {tol:g})")
+            check(max(errs) <= tol, f"{name} {key} disagrees with its twin")
+            check(bit_equal(grads, again), f"{name} {key}: two backward calls differ")
+            n = h.numel()
+            rows_in = sum(x.element_size() for x in args[:2]) * n
+            for half, fn, twin, nbytes in (
+                    ("fwd", lambda: fwd(*args, *extra), lambda: ref(*args, *extra), rows_in + out.element_size() * n),
+                    ("bwd", lambda: bwd(*args, *extra, gy), lambda: ref_bwd(*args, *extra, gy),
+                     rows_in + gy.element_size() * n + sum(x.element_size() * n for x in grads[:2]))):
+                ms, bound_ms = device_ms(fn), nbytes / PEAK_BYTES_PER_S * 1e3
+                plain_ms = device_ms(twin, calls=5, iters=3)
+                times[f"{name}_{half}"][key] = {"ms": ms, "bound_ms": bound_ms, "bound_pct": 100 * bound_ms / ms,
+                                                "plain_ms": plain_ms}
+                print(f"{name}_{half} {key}: {ms:.4f} ms, bound {bound_ms:.4f} ms (bytes; {100 * bound_ms / ms:.1f}%), "
+                      f"twin {plain_ms:.4f} ms")
+    return times
+
+
 def subtiled_time_phase() -> dict:
     """K10 (nsplit 2 and 7) against K2 and K5's backward in turns, at the
     bench's shape, then its twin, the flash_attn=False chain and SDPA's
@@ -1036,7 +1157,7 @@ def serve_phase(title, path, cfg, pred, plain, *, replicas: int = 1, versus: str
         r32 = post(addr, "/predict", json.dumps({"images": images[32].tolist(), "top_k": 5}).encode(),
                    "application/json")
         served_s = time.perf_counter() - t0
-        launches = read_counts()
+        launches, residual = read_counts(), residual_counts()
         health = get(addr, "/healthz")
         stats = get(addr, "/stats")
     finally:
@@ -1058,6 +1179,8 @@ def serve_phase(title, path, cfg, pred, plain, *, replicas: int = 1, versus: str
     # each forward runs once on every replica of a data-parallel Predictor
     check_launches(launches, per_pass(PATHS[path]["forward"], per_forward * forwards * replicas),
                    f"serving {title}")
+    # model shards in one process (LocalShards) run each residual update once, on the first shard
+    check_residual_launches(cfg.model, f"serving {title}", forwards * replicas, 0, got=residual)
 
     for res, b in ((r1, 1), (r4, 4), (r32, 32)):
         labels, probs = np.asarray(res["labels"]), np.asarray(res["probs"])
@@ -1484,7 +1607,7 @@ def step_launches(cfg, path, state, images, labels) -> dict:
     launches = read_counts()
     print(f"launches in one training step: {launches}")
     check_launches(launches, per_pass(PATHS[path]["step"], n_passes(cfg.model)), "one training step")
-    return launches
+    return {**launches, **check_residual_launches(cfg.model, "one training step", 1, 1)}
 
 
 def train_phase(smi: str, title: str, path: str, cfg, grad_groups: dict) -> dict:
@@ -1653,6 +1776,7 @@ def check_phase(title: str, path: str, cfg, grad_groups: dict, *, sqk_factor: fl
     forward = read_counts()
     print(f"launches in one batch-32 forward: {forward}")
     check_launches(forward, per_pass(PATHS[path]["forward"], n_passes(m)), f"forward, {title}")
+    check_residual_launches(m, f"forward, {title}", 1, 0)
     check(probs.shape == (len(u8), m.num_classes) and np.isfinite(probs).all(), "bad probabilities")
     with torch.inference_mode():
         logits = state.model(images, compute_dtype=torch.bfloat16)
@@ -3472,6 +3596,7 @@ def main() -> int:
     smi = device_phase()
     build_phase()
     errs = kernel_phase()
+    residual_times = residual_phase()
     bench_launches = bench_phase()
     k10_times = subtiled_time_phase()
     reuse_synthetic_data()
@@ -3509,6 +3634,8 @@ def main() -> int:
         for name in PATHS[path]["step"]:
             launches[name] = served[name] if name in PATHS[path]["forward"] else stepped[name]
         by_path[path] = {name: launches[name] for name in PATHS[path]["step"]}
+        by_path[path].update({name: stepped[name] for name in RESIDUAL})
+        launches.update({name: stepped[name] for name in RESIDUAL})  # path A's last: 25 / 25 / 12 / 12
         gc.collect()
         torch.cuda.empty_cache()
     launches["flash_attn_bwd_split"] = stepped["flash_attn_bwd_split"]  # 0: T = 784 takes K8
@@ -3571,6 +3698,10 @@ def main() -> int:
          "profile_launches": {p: got[name] for p, got in profiles.items()}}
         for name, (src, tpu) in KERNELS.items()
     ]}
+    # the residual kernels: times at [32, 784, 768] by dtype, launches of the last path that runs each
+    summary["residual"] = {name: {"route": "cuda", "source": "nvit_tpu_torch/csrc/residual.cu",
+                                  "replaces": "none (jnp under custom VJPs, nvit_tpu/core/residual.py)",
+                                  "launches": launches[name], **residual_times[name]} for name in RESIDUAL}
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s of wall time")
     print(smi)  # the card and its power limit, as nvidia-smi gives them
     print(json.dumps(summary))

@@ -14,12 +14,17 @@ without building the model from code.
   ``.flash_attention``, ``.gated_mlp``; ops/flash_attention.py,
   ops/gated_mlp.py), so the program calls them and the loaded program
   launches K1/K5 after the prologue, K7 and K3/K6 as the eager forward does.
+  So are the residual updates (``torch.ops.nvit.slerp_residual``,
+  ``.norm_skip``; core/residual.py, imported here with the model), on
+  every path, so every program needs them registered where it is loaded.
 * ``batch=None`` exports a symbolic batch on the plain path
   (``flash_attn=False``, meta ``"attention": "plain"``), as the JAX package
   does (its Pallas grids cannot be shape-polymorphic), so a symbolic
-  artifact computes what JAX's does; ``batch=N`` pins the batch and keeps
-  the configured kernels.  The registered operators would take a symbolic
-  batch: lifting the swap is an open choice (ROADMAP.md).
+  artifact computes what JAX's does, plain but for the residual updates,
+  which launch their kernels on CUDA and run their twins on the CPU;
+  ``batch=N`` pins the batch and keeps the configured kernels.  The
+  registered operators would take a symbolic batch: lifting the swap is an
+  open choice (ROADMAP.md).
 * ``quantize="int8"`` quantizes first (ops/quant.py): the program holds the
   int8 weights and ``torch._int_mm``.
 """

@@ -1,5 +1,6 @@
-"""Card-only tests: the port's CUDA kernels (K1–K10 and the projection
-prologues) against their plain twins, K2–K6 and K8–K10 bit-deterministic,
+"""Card-only tests: the port's CUDA kernels (K1–K10, the projection
+prologues and the residual updates) against their plain twins, K2–K6,
+K8–K10 and the residual backwards bit-deterministic,
 the autograd Functions' gradients, one flagship-width Block's backward in
 each mode, with and without a bias and the bounded softmax, and
 ``device_prefetch``'s side-stream upload against the host batches.
@@ -879,3 +880,122 @@ def test_device_prefetch_side_stream_delivers_the_host_bytes(cuda):
     assert len(got) == len(host)
     for (gi, gl), (hi, hl) in zip(got, host):
         assert np.array_equal(gi.cpu().numpy(), hi) and np.array_equal(gl.cpu().numpy(), hl)
+
+
+# ------------------------------------------------------------ residual updates
+RESIDUAL_CASES = [  # (shape, h_new's and h_update's dtype, h's dtype)
+    ((32, 784, 768), torch.bfloat16, torch.bfloat16),  # nViT-B/16's batch 32
+    ((32, 784, 768), torch.float32, torch.float32),  # the baseline's outer skips
+    ((32, 784, 768), torch.float32, torch.bfloat16),  # its first: an fp32 block output on bf16 patches
+    ((3, 50, 64), torch.bfloat16, torch.bfloat16),  # a small width: one chunk a row, lanes past d idle
+]
+# kernel and twin round at the same points but sum the norms in another
+# order: in fp32 that is the last bits (relative L2 ≤ 1e-7 measured); with a
+# bf16 input it flips a few bf16 roundings by one ulp (25 and 128 of 19.3M
+# outputs; relative L2 1.5e-5 forward, ≤ 2.2e-5 for every gradient)
+RESIDUAL_TOL = {torch.bfloat16: 1e-4, torch.float32: 1e-6}
+
+
+def residual_inputs(shape, dt_new, dt_h, device, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    h = torch.randn(shape, generator=g).to(device, dt_h)
+    new = (0.5 * torch.randn(shape, generator=g)).to(device, dt_new)
+    gy = torch.randn(shape, generator=g).to(device, torch.promote_types(dt_new, dt_h))
+    alpha = (0.05 * torch.randn(shape[-1], generator=g)).to(device)  # both signs: sign(α·c) in dα
+    return h, new, gy, alpha, torch.tensor([0.83], device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dt_new,dt_h", RESIDUAL_CASES)
+def test_residual_kernels_match_twins(cuda, shape, dt_new, dt_h):
+    """The SLERP (one dtype) and norm_skip kernels through their autograd
+    Functions against the plain chains on the same CUDA tensors: the output
+    and every gradient, dα and d_skip included, in the inputs' dtypes."""
+    from nvit_tpu_torch.core import residual as R
+    from nvit_tpu_torch.ops import residual as kernels
+
+    h, new, gy, alpha, skip = residual_inputs(shape, dt_new, dt_h, cuda, seed=shape[-1])
+    tol = RESIDUAL_TOL[torch.bfloat16 if torch.bfloat16 in (dt_new, dt_h) else torch.float32]
+    cases = [(R.norm_skip, R.norm_skip_ref, R.norm_skip_bwd_ref, (new, h, skip), (), kernels.norm_skip_fwd)]
+    if dt_new == dt_h:
+        cases.append((lambda *x: R.slerp_residual(*x, 0.05, 1 / 32), R.slerp_residual_ref,
+                      R.slerp_residual_bwd_ref, (h, new, alpha), (32 * 0.05,), kernels.slerp_fwd))
+    for fn, ref, ref_bwd, args, c, counted in cases:
+        leaves = [x.clone().requires_grad_() for x in args]
+        before = counted.launches
+        out = fn(*leaves)
+        out.backward(gy)
+        want = ref(*args, *c)
+        grads = ref_bwd(*args, *c, gy)
+        torch.cuda.synchronize()
+        assert counted.launches == before + 1
+        assert out.dtype == want.dtype and rel_l2(out, want) <= tol
+        if out.dtype == torch.bfloat16:  # one-ulp flips only
+            assert (out != want).float().mean().item() <= 1e-4
+        for leaf, r in zip(leaves, grads):
+            assert leaf.grad.dtype == leaf.dtype and rel_l2(leaf.grad, r) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_residual_kernels_are_deterministic(cuda, dtype):
+    """No atomics: the per-block partials of dα and d_skip are summed in a
+    fixed order, so two calls give the same bytes, forward and backward."""
+    from nvit_tpu_torch.ops import residual as kernels
+
+    h, new, gy, alpha, skip = residual_inputs((32, 784, 768), dtype, dtype, cuda, seed=9)
+    for fwd, bwd in ((lambda: kernels.slerp_fwd(h, new, alpha, 1.6), lambda: kernels.slerp_bwd(h, new, alpha, 1.6, gy)),
+                     (lambda: kernels.norm_skip_fwd(new, h, skip), lambda: kernels.norm_skip_bwd(new, h, skip, gy))):
+        assert torch.equal(as_bytes(fwd()), as_bytes(fwd()))
+        first, again = bwd(), bwd()
+        torch.cuda.synchronize()
+        assert all(torch.equal(as_bytes(a), as_bytes(b)) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+def test_residual_updates_raise_on_float64_cuda_tensors(cuda):
+    """CUDA tensors launch the kernels or raise: float64 is not taken, with
+    grad (the Functions) or without (the registered operators)."""
+    from nvit_tpu_torch.core import residual as R
+
+    h, new, _, alpha, skip = residual_inputs((2, 5, 64), torch.float64, torch.float64, cuda, seed=1)
+    for grad in (True, False):
+        with torch.set_grad_enabled(grad):
+            leaf = h.clone().requires_grad_(grad)
+            with pytest.raises(ValueError, match="bf16 or fp32"):
+                R.slerp_residual(leaf, new, alpha, 0.05, 1 / 32)
+            with pytest.raises(ValueError, match="bf16 or fp32"):
+                R.norm_skip(new, leaf, skip)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_nvit", [True, False])
+def test_residual_launches_per_flagship_step(cuda, use_nvit):
+    """One training step of the flagship (batch 2) launches the SLERP kernels
+    25 times each with nViT (2 a block, 1 for the cross-attention) and
+    norm_skip's 12 times each in both modes; a forward without grad launches
+    the forwards alone, through the registered operators."""
+    import dataclasses
+
+    from nvit_tpu_torch.models.presets import flagship_config
+    from nvit_tpu_torch.ops import residual as kernels
+    from nvit_tpu_torch.train.state import create_train_state
+    from nvit_tpu_torch.train.step import make_train_step
+
+    cfg = flagship_config(use_nvit=use_nvit)
+    cfg = dataclasses.replace(cfg, training=dataclasses.replace(cfg.training, batch_size=2))
+    state = create_train_state(cfg, seed=0, device=cuda)
+    images = torch.randn(2, 3, 224, 224, generator=torch.Generator().manual_seed(3)).to(cuda)
+    labels = torch.tensor([1, 7], device=cuda)
+    counted = (kernels.slerp_fwd, kernels.slerp_bwd, kernels.norm_skip_fwd, kernels.norm_skip_bwd)
+
+    def launches(fn):
+        before = [f.launches for f in counted]
+        fn()
+        torch.cuda.synchronize()
+        return [f.launches - b for f, b in zip(counted, before)]
+
+    slerp = 25 if use_nvit else 0
+    assert launches(lambda: make_train_step(cfg)(state, images, labels)) == [slerp, slerp, 12, 12]
+    with torch.no_grad():
+        assert launches(lambda: state.model(images, compute_dtype=torch.bfloat16)) == [slerp, 0, 12, 0]
